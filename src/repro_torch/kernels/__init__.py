@@ -1,0 +1,67 @@
+"""Hand-written Hopper kernels for the engine's hot loops, with plain twins.
+
+Dispatch policy (the one place it is decided)
+---------------------------------------------
+
+Every kernel wrapper in this package routes on the device of the tensors it
+is given, through :func:`route`:
+
+  * a CUDA tensor goes through the hand-written CUDA kernel (``csrc/``,
+    built by :mod:`.build` at first use). If the kernel cannot be built or
+    launched, the wrapper raises; there is no fallback;
+  * a CPU tensor goes through the kernel's plain torch version (``ref.py``),
+    which is also the oracle the kernel is held against on the card;
+  * any other device raises.
+
+No flag routes CUDA work to the plain version.
+
+Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches its
+kernel, and nowhere else, so a run can show that the main path went through
+the kernels.
+
+Kernel sites on the main path::
+
+    call site                               wrapper                      kernel
+    --------------------------------------- ---------------------------- -------------------------
+    core/decay.sweep_decay_prune            ops.decay_prune_table        csrc/decay_prune.cu
+    core/ranking._score_and_gate            ops.score_gate               csrc/score_gate.cu
+    core/ranking.ranking_cycle (selection)  ops.bucket_topk              csrc/bucket_topk.cu
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk")
+
+# Launch counts per kernel: incremented only where a wrapper launches its
+# CUDA kernel (never for the plain version on the CPU).
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def route(*tensors: torch.Tensor) -> str:
+    """``"kernel"`` for CUDA tensors, ``"plain"`` for CPU tensors.
+
+    All tensors must share one device; any other device raises.
+    """
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type == "cuda":
+        return "kernel"
+    if dev.type == "cpu":
+        return "plain"
+    raise RuntimeError(f"no kernel route for device {dev}")
+
+
+def check_launch(code: int, name: str) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")

@@ -1,0 +1,62 @@
+"""Engine-facing wrappers over the kernels (port of the JAX ``kernels/ops.py``).
+
+The CUDA kernels take any capacity, so the JAX wrappers' ragged-capacity
+branches are gone; the device of the tensors picks kernel or plain version
+(see the package docstring).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import decay_prune as _dp
+from . import topk_select as _tk
+
+
+def decay_prune_table(table, dticks, *, cfg, weight_lanes: Tuple[str, ...]):
+    """Fused decay/prune sweep over a HashTable (the engine's decay cycle).
+
+    Every 1-D lane rides the one pass: weight lanes are decayed and pruned,
+    aux lanes cleared on pruned slots. Returns (table, live_count,
+    total_weight); the two scalars are plain reductions over the output
+    lanes, as in the reference sweep.
+    """
+    aux = [n for n in table.lanes if n not in weight_lanes]
+    kh, kl, w_out, a_out, live, tot = _dp.decay_prune_multi(
+        table.key_hi, table.key_lo,
+        tuple(table.lanes[n] for n in weight_lanes),
+        tuple(table.lanes[n] for n in aux), cfg.factor(dticks),
+        cfg.prune_threshold)
+    lanes = dict(zip(weight_lanes, w_out))
+    lanes.update(zip(aux, a_out))
+    return table._replace(key_hi=kh, key_lo=kl, lanes=lanes), live, tot
+
+
+def score_gate(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c, *,
+               coefs: Tuple[float, float, float, float],
+               min_pair_weight: float, min_src_weight: float,
+               min_pair_count: float, decay_cfg=None, last_tick=None,
+               now=None):
+    """(Lazy decay +) scoring + gating: the elementwise stage of the
+    segmented ranking cycle. Exponential decay runs in the kernel; other
+    kinds pre-decay with identical semantics."""
+    half_life = None
+    if decay_cfg is not None:
+        if decay_cfg.kind == "exp":
+            half_life = float(decay_cfg.half_life_ticks)
+        else:
+            w_ab = w_ab * decay_cfg.factor(torch.clamp_min(now - last_tick, 0))
+    return _tk.score_gate(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick,
+                          total_w, total_c, now,
+                          coefs=tuple(float(c) for c in coefs),
+                          min_pair_weight=float(min_pair_weight),
+                          min_src_weight=float(min_src_weight),
+                          min_pair_count=float(min_pair_count),
+                          half_life=half_life)
+
+
+def bucket_topk(grid, k: int):
+    """Per-bucket top-k over the segmented ranking [R, L] grid (values and
+    in-bucket columns); the lowest column wins ties."""
+    return _tk.bucket_topk(grid, int(k))
