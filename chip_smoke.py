@@ -8,10 +8,12 @@ Phases, each of which must pass:
   1. card and build — the card's name and power limit (nvidia-smi), then
      every CUDA kernel built from ``src/repro_torch/kernels/csrc``;
   2. kernels at main-path shapes — each kernel against its plain torch
-     version on the card (random inputs from a numpy seed): max error,
-     kernel / plain / library time (CUDA events, median of 20 after
-     warm-up) and the least time the card could take (HBM bytes at
-     3.35 TB/s or operations at 67 TFLOP/s f32, whichever is larger);
+     version on the card (random inputs from a numpy seed): max error; the
+     kernel's own device time (profiler trace, mean of 20 launches after
+     warm-up); the wrapper's, plain version's and library call's time
+     (CUDA events, median of 20 after warm-up); and the least time the
+     card could take (HBM bytes at 3.35 TB/s or operations at 67 TFLOP/s
+     f32, whichever is larger);
   3. the engine on the card against the engine on the CPU at a small size
      (state under the parity contract, suggestions);
   4. the main path at deployment scale — ``SearchAssistanceEngine.step``
@@ -37,6 +39,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
 SEED = 0
+# ~1 ms of device sleep at the H100's clock: queued before a timed call so
+# the host's launch work hides under it and the events time the device.
+SLEEP_CYCLES = 2_000_000
+# Symbol of each CUDA kernel, as the profiler's trace names it.
+KERNEL_SYMBOLS = {"decay_prune_multi": "decay_prune_multi_kernel",
+                  "score_gate": "score_gate_kernel",
+                  "bucket_topk": "bucket_topk_kernel"}
 
 
 def log(*a):
@@ -51,7 +60,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` in ms over ``reps`` launches."""
+    """Median device span of ``fn()`` in ms over ``reps`` calls (CUDA
+    events), each queued behind a device sleep so host launch work is
+    hidden."""
     import torch
     for _ in range(warmup):
         fn()
@@ -59,12 +70,38 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_ms(fn, name: str, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time in ms of kernel ``name`` alone over ``reps`` calls
+    of ``fn``, read from the profiler's trace: no allocation, argument
+    marshalling or plain reduction of the wrapper around it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and KERNEL_SYMBOLS[name] in e.key]
+    n = sum(e.count for e in rows)
+    if n != reps:
+        raise AssertionError(f"profiler saw {n} launches of "
+                             f"{KERNEL_SYMBOLS[name]}, expected {reps}")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / n
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -107,13 +144,15 @@ def check_decay_prune(C: int, n_aux: int, dev):
         if not torch.equal(g.view(torch.int32), e.view(torch.int32)):
             raise AssertionError(f"decay_prune_multi C={C}: lanes differ")
     err = float((got[2][0] - exp[2][0]).abs().max())
-    ms = time_ms(lambda: decay_prune_multi(kh, kl, [w], aux, f, 0.05))
+    run = lambda: decay_prune_multi(kh, kl, [w], aux, f, 0.05)
+    ms, wrapper_ms = kernel_ms(run, "decay_prune_multi"), time_ms(run)
     plain_ms = time_ms(lambda: ref.decay_prune_multi_ref(
         kh, kl, [w], aux, torch.tensor(f), 0.05))
     lanes = 2 + 1 + n_aux
     b_ms, b_by = bound(C * lanes * 4 * 2, C * 2)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def _score_inputs(C, dev):
@@ -172,12 +211,14 @@ def check_score_gate(C: int, dev):
         log(f"  score_gate half_life={half_life}: max_abs_err={e!r} "
             f"gate flips within 1 ulp of min_pair_weight={n_flips}")
     kw = dict(coefs=rc.coefs, half_life=None, **gates)
-    ms = time_ms(lambda: score_gate(*lanes, ok, lt, *sc, **kw))
+    run = lambda: score_gate(*lanes, ok, lt, *sc, **kw)
+    ms, wrapper_ms = kernel_ms(run, "score_gate"), time_ms(run)
     plain_ms = time_ms(lambda: ref.score_gate_ref(
         *lanes, ok, sc[0], sc[1], rc.coefs, **gates))
     b_ms, b_by = bound(C * (6 * 4 + 1 + 4), C * SCORE_OPS_PER_SLOT)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 def check_bucket_topk(R: int, L: int, K: int, dev):
@@ -198,12 +239,14 @@ def check_bucket_topk(R: int, L: int, K: int, dev):
     if not (torch.equal(vals, ev) and torch.equal(args[fin], ea[fin])):
         raise AssertionError("bucket_topk differs from the plain version")
     err = float((vals[fin] - ev[fin]).abs().max())
-    ms = time_ms(lambda: bucket_topk(grid, K))
+    run = lambda: bucket_topk(grid, K)
+    ms, wrapper_ms = kernel_ms(run, "bucket_topk"), time_ms(run)
     plain_ms = time_ms(lambda: ref.bucket_topk_ref(grid, K))
     library_ms = time_ms(lambda: torch.topk(grid, K, dim=1))
     b_ms, b_by = bound(R * L * 4 + R * K * 8, R * L * K)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -472,7 +515,9 @@ def main() -> int:
         {"name": n, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{sources[n][0]}",
          "replaces": f"src/repro/kernels/{sources[n][1]}",
-         "launches": launches[n], **rows[n]} for n in tk.KERNELS]}
+         "launches": launches[n],
+         **{k: v for k, v in rows[n].items() if k != "wrapper_ms"}}
+        for n in tk.KERNELS]}
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps(record), flush=True)

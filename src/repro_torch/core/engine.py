@@ -90,12 +90,16 @@ _COOC_LANES = {"weight": torch.float32, "count": torch.float32,
                "dst_hi": U32, "dst_lo": U32}
 
 
-def make_cooc_store(cfg: EngineConfig, device="cpu") -> HashTable:
-    """The hash-layout cooccurrence store."""
+def make_cooc_store(cfg: EngineConfig, device="cuda") -> HashTable:
+    """The hash-layout cooccurrence store (on CUDA unless ``device`` names
+    another device; raises where CUDA is absent)."""
     return stores.make_table(cfg.cooc_capacity, _COOC_LANES, device)
 
 
-def init_state(cfg: EngineConfig, device="cpu") -> EngineState:
+def init_state(cfg: EngineConfig, device="cuda") -> EngineState:
+    """Empty engine state on ``device`` (CUDA by default; raises where CUDA
+    is absent, so pass ``"cpu"`` to run the plain versions)."""
+    device = stores.resolve_device(device)
     return EngineState(
         stores.make_table(cfg.query_capacity, _QSTORE_LANES, device),
         make_cooc_store(cfg, device),
@@ -370,10 +374,7 @@ class SearchAssistanceEngine:
     """
 
     def __init__(self, cfg: EngineConfig, name: str = "rt", device=None):
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' "
-                               "to run the engine on the CPU")
+        device = stores.resolve_device(device)
         self.cfg = cfg
         self.name = name
         self.device = device

@@ -61,15 +61,27 @@ class HashTable(NamedTuple):
         return self.live_mask.sum(dtype=torch.int32)
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device a store or engine is made on: CUDA unless the caller names
+    another. Raises where CUDA is asked for and absent, so nothing falls
+    back to the CPU unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
 def _lane_dtype(spec) -> torch.dtype:
     return torch.int32 if spec == U32 else spec
 
 
 def make_table(capacity: int, lane_specs: Dict[str, Any],
-               device="cpu") -> HashTable:
+               device="cuda") -> HashTable:
     """lane_specs: name -> torch dtype, or ``U32``."""
     if capacity <= 0 or capacity & (capacity - 1):
         raise ValueError("capacity must be a power of two")
+    device = resolve_device(device)
     lanes = {name: torch.zeros((capacity,), dtype=_lane_dtype(spec),
                                device=device)
              for name, spec in lane_specs.items()}
@@ -366,10 +378,11 @@ class SessionTable(NamedTuple):
         return self.ring_hi.shape[1]
 
 
-def make_session_table(capacity: int, window: int, device="cpu"
+def make_session_table(capacity: int, window: int, device="cuda"
                        ) -> SessionTable:
     if capacity <= 0 or capacity & (capacity - 1):
         raise ValueError("capacity must be a power of two")
+    device = resolve_device(device)
     z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
     return SessionTable(z(capacity), z(capacity), z(capacity, window),
                         z(capacity, window), z(capacity, window), z(capacity),

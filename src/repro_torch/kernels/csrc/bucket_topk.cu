@@ -7,9 +7,11 @@
 // K values and K columns are written per row (R * K * 8 B); the K rounds of
 // comparisons run on registers.
 //
-// Design: one warp per row. Lane l holds columns l, l + 32, l + 64, ... in
-// registers (NPER = ceil(L / 32) values, a template constant so the array
-// stays in registers), loaded with coalesced 4-byte reads. Each of the K
+// Design: one warp per row. Lane l holds columns l and l + 32 in registers
+// (NPER = ceil(L / 32) values, a template constant so the array stays in
+// registers), loaded with coalesced 4-byte reads. Rows up to 64 wide are
+// instantiated: the engine's grid is max(bucket_rows, top_k) = 64 wide at
+// RankConfig's defaults. Each of the K
 // rounds is a local scan (strictly greater keeps the lowest column among a
 // lane's ties) followed by a five-step butterfly shuffle on (value, then
 // lowest column), so ties resolve to the lowest column exactly like
@@ -24,6 +26,7 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxWidth = 64;
 
 template <int NPER>
 __global__ void bucket_topk_kernel(const float* __restrict__ grid, int64_t rows,
@@ -79,13 +82,13 @@ void launch(const float* grid, int64_t rows, int L, int K, float* vals,
 
 }  // namespace
 
-extern "C" int repro_bucket_topk_max_width() { return 32 * 8; }
+extern "C" int repro_bucket_topk_max_width() { return kMaxWidth; }
 
 // grid: f32[rows, L] row-major; vals f32[rows, K]; args i32[rows, K].
 // Returns a cudaError_t code (0 on a clean launch).
 extern "C" int repro_bucket_topk(const void* grid, int64_t rows, int L, int K,
                                  void* vals, void* args, void* stream) {
-  if (rows < 0 || L < 1 || L > 32 * 8 || K < 0 ||
+  if (rows < 0 || L < 1 || L > kMaxWidth || K < 0 ||
       rows > (int64_t)kWarpsPerBlock * 0x7fffffff) {
     return (int)cudaErrorInvalidValue;
   }
@@ -95,8 +98,6 @@ extern "C" int repro_bucket_topk(const void* grid, int64_t rows, int L, int K,
   int32_t* a = static_cast<int32_t*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L <= 32) launch<1>(g, rows, L, K, v, a, s);
-  else if (L <= 64) launch<2>(g, rows, L, K, v, a, s);
-  else if (L <= 128) launch<4>(g, rows, L, K, v, a, s);
-  else launch<8>(g, rows, L, K, v, a, s);
+  else launch<2>(g, rows, L, K, v, a, s);
   return (int)cudaGetLastError();
 }

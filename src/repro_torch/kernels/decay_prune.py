@@ -15,18 +15,15 @@ import torch
 from . import LAUNCHES, check_launch, ref, route
 from .build import load
 
-MAX_WEIGHT_LANES = 4
 MAX_AUX_LANES = 8
 
 
 def _entry():
     fn = load("decay_prune").repro_decay_prune_multi
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64),
-                   ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int64, ctypes.c_void_p]
     return fn
 
 
@@ -51,38 +48,37 @@ def decay_prune_multi(key_hi: torch.Tensor, key_lo: torch.Tensor,
     ``threshold``, clear keys, weights and aux lanes elsewhere.
 
     Keys are int32 bit views of u32; weight lanes f32; aux lanes any 4-byte
-    type. Returns (key_hi', key_lo', weight_lanes', aux_lanes', live_count
-    i32[], total_weight f32[]); the two scalars are plain reductions over
-    the output lanes on both routes.
+    type. The CUDA kernel takes one weight lane, as every store has; the
+    plain version takes any number. Returns (key_hi', key_lo',
+    weight_lanes', aux_lanes', live_count i32[], total_weight f32[]); the
+    two scalars are plain reductions over the output lanes on both routes.
     """
     weight_lanes, aux_lanes = tuple(weight_lanes), tuple(aux_lanes)
     if route(key_hi, key_lo, *weight_lanes, *aux_lanes) == "plain":
         return ref.decay_prune_multi_ref(key_hi, key_lo, weight_lanes,
                                          aux_lanes, decay_factor, threshold)
     n = key_hi.shape[0]
-    if not 1 <= len(weight_lanes) <= MAX_WEIGHT_LANES:
-        raise ValueError(f"need 1..{MAX_WEIGHT_LANES} weight lanes")
+    if len(weight_lanes) != 1:
+        raise ValueError("the CUDA kernel takes exactly one weight lane, "
+                         f"got {len(weight_lanes)}")
     if len(aux_lanes) > MAX_AUX_LANES:
         raise ValueError(f"at most {MAX_AUX_LANES} aux lanes")
-    for i, t in enumerate((key_hi, key_lo, *weight_lanes, *aux_lanes)):
+    (w,) = weight_lanes
+    for i, t in enumerate((key_hi, key_lo, w, *aux_lanes)):
         _check_lane(t, n, f"lane {i}")
-    for w in weight_lanes:
-        if w.dtype != torch.float32:
-            raise ValueError(f"weight lanes must be float32, got {w.dtype}")
+    if w.dtype != torch.float32:
+        raise ValueError(f"the weight lane must be float32, got {w.dtype}")
     out_hi, out_lo = torch.empty_like(key_hi), torch.empty_like(key_lo)
-    w_out = tuple(torch.empty_like(w) for w in weight_lanes)
+    w_out = torch.empty_like(w)
     a_out = tuple(torch.empty_like(a) for a in aux_lanes)
-    w_ptrs = (ctypes.c_uint64 * (2 * len(w_out)))(
-        *[t.data_ptr() for t in (*weight_lanes, *w_out)])
     a_ptrs = (ctypes.c_uint64 * max(2 * len(a_out), 1))(
         *[t.data_ptr() for t in (*aux_lanes, *a_out)])
-    f = float(decay_factor)
-    code = _entry()(key_hi.data_ptr(), key_lo.data_ptr(), out_hi.data_ptr(),
-                  out_lo.data_ptr(), w_ptrs, len(w_out), a_ptrs, len(a_out),
-                  f, float(threshold), n,
-                  torch.cuda.current_stream(key_hi.device).cuda_stream)
+    code = _entry()(key_hi.data_ptr(), key_lo.data_ptr(), w.data_ptr(),
+                    out_hi.data_ptr(), out_lo.data_ptr(), w_out.data_ptr(),
+                    a_ptrs, len(a_out), float(decay_factor), float(threshold),
+                    n, torch.cuda.current_stream(key_hi.device).cuda_stream)
     check_launch(code, "decay_prune_multi")
     LAUNCHES["decay_prune_multi"] += 1
     keep = (out_hi != 0) | (out_lo != 0)
-    return (out_hi, out_lo, w_out, a_out, keep.sum(dtype=torch.int32),
-            w_out[0].sum())
+    return (out_hi, out_lo, (w_out,), a_out, keep.sum(dtype=torch.int32),
+            w_out.sum())

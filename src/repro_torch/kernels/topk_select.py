@@ -101,7 +101,8 @@ def bucket_topk(grid: torch.Tensor, k: int
 
     Returns (vals f32[R, k], args i32[R, k]); rounds past a row's finite
     entries yield ``-inf`` and the sentinel column ``L``. The CUDA kernel
-    keeps a row in one warp's registers, so it raises for ``L`` above 256.
+    keeps a row in one warp's registers, so it raises for ``L`` above 64
+    (the engine's grid is ``max(bucket_rows, top_k)`` = 64 wide by default).
     """
     if route(grid) == "plain":
         return ref.bucket_topk_ref(grid, k)

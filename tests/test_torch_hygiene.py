@@ -35,3 +35,42 @@ def test_engine_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         SearchAssistanceEngine(cfg)
     assert SearchAssistanceEngine(cfg, device="cpu").device.type == "cpu"
+
+
+def _cfg():
+    from repro_torch.core.engine import EngineConfig
+    return EngineConfig(query_capacity=1 << 8, cooc_capacity=1 << 8,
+                        session_capacity=1 << 8)
+
+
+def _init_state(**kw):
+    from repro_torch.core.engine import init_state
+    return init_state(_cfg(), **kw).tick
+
+
+def _make_cooc_store(**kw):
+    from repro_torch.core.engine import make_cooc_store
+    return make_cooc_store(_cfg(), **kw).key_hi
+
+
+def _make_table(**kw):
+    from repro_torch.core.stores import make_table
+    return make_table(1 << 8, {"weight": torch.float32}, **kw).key_hi
+
+
+def _make_session_table(**kw):
+    from repro_torch.core.stores import make_session_table
+    return make_session_table(1 << 8, 4, **kw).key_hi
+
+
+@pytest.mark.parametrize("make", [_init_state, _make_cooc_store, _make_table,
+                                  _make_session_table],
+                         ids=lambda f: f.__name__.lstrip("_"))
+def test_state_constructors_default_to_cuda_and_refuse_without_it(
+        monkeypatch, make):
+    """The functional path (``init_state`` + ``ingest_many``) never lands on
+    the CPU, and so on the plain versions, unless the caller asks."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+    assert make(device="cpu").device.type == "cpu"

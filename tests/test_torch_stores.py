@@ -64,7 +64,7 @@ def _assert_tables_equal(jt, tt):
 def test_insert_accumulate_matches_jax(C, B, n_distinct, rounds):
     rng = np.random.default_rng(C + B)
     jt = js.make_table(C, J_LANES)
-    tt = ts.make_table(C, T_LANES)
+    tt = ts.make_table(C, T_LANES, device="cpu")
     for step in range(3):
         hi, lo, upd, valid = _batch(rng, B, n_distinct, tick=step)
         jt = _j_insert(jt, hi, lo, upd, valid, probe_rounds=rounds)
@@ -76,7 +76,8 @@ def test_insert_accumulate_matches_jax(C, B, n_distinct, rounds):
 
 def test_lazy_rebase_insert_matches_jax():
     rng = np.random.default_rng(3)
-    jt, tt = js.make_table(1 << 10, J_LANES), ts.make_table(1 << 10, T_LANES)
+    jt = js.make_table(1 << 10, J_LANES)
+    tt = ts.make_table(1 << 10, T_LANES, device="cpu")
     for step, now in enumerate((0, 5, 13)):
         hi, lo, upd, valid = _batch(rng, 256, 100, tick=now)
         jt = _j_insert(jt, hi, lo, upd, valid, decay_cfg=JDecayConfig(),
@@ -92,7 +93,8 @@ def test_lazy_rebase_insert_matches_jax():
 def test_lookup_matches_jax(lazy):
     rng = np.random.default_rng(5)
     C = 128
-    jt, tt = js.make_table(C, J_LANES), ts.make_table(C, T_LANES)
+    jt, tt = js.make_table(C, J_LANES), ts.make_table(C, T_LANES,
+                                                      device="cpu")
     hi, lo, upd, valid = _batch(rng, 400, 150)
     jt = _j_insert(jt, hi, lo, upd, valid)
     tt = _t_insert(tt, hi, lo, upd, valid)
@@ -127,7 +129,8 @@ def _sess_batch(rng, B, n_sessions, n_queries):
 ])
 def test_update_sessions_matches_jax(S, W, B, n_sessions):
     rng = np.random.default_rng(S + B)
-    jt, tt = js.make_session_table(S, W), ts.make_session_table(S, W)
+    jt = js.make_session_table(S, W)
+    tt = ts.make_session_table(S, W, device="cpu")
     for tick in range(3):
         sh, sl, qh, ql, src, valid = _sess_batch(rng, B, n_sessions, 30)
         jt, jp = js.update_sessions(
@@ -152,7 +155,8 @@ def test_update_sessions_matches_jax(S, W, B, n_sessions):
 
 def test_export_live_matches_jax():
     rng = np.random.default_rng(8)
-    jt, tt = js.make_table(256, J_LANES), ts.make_table(256, T_LANES)
+    jt = js.make_table(256, J_LANES)
+    tt = ts.make_table(256, T_LANES, device="cpu")
     hi, lo, upd, valid = _batch(rng, 200, 90)
     a = js.export_live(_j_insert(jt, hi, lo, upd, valid))
     b = ts.export_live(_t_insert(tt, hi, lo, upd, valid))
