@@ -9,9 +9,9 @@ Phases, each of which must pass:
      every CUDA kernel built from ``src/repro_torch/kernels/csrc``;
   2. kernels at main-path shapes — each kernel against its plain torch
      version on the card (random inputs from a numpy seed): max error; the
-     kernel's own device time (profiler trace, mean of 20 launches after
-     warm-up); the wrapper's, plain version's and library call's time
-     (CUDA events, median of 20 after warm-up); and the least time the
+     kernel's own time (its bare launch into preallocated outputs), the
+     wrapper's, the plain version's and the library call's time (CUDA
+     events, median of 20 after warm-up); and the least time the
      card could take (HBM bytes at 3.35 TB/s or operations at 67 TFLOP/s
      f32, whichever is larger);
   3. the engine on the card against the engine on the CPU at a small size
@@ -42,10 +42,6 @@ SEED = 0
 # ~1 ms of device sleep at the H100's clock: queued before a timed call so
 # the host's launch work hides under it and the events time the device.
 SLEEP_CYCLES = 2_000_000
-# Symbol of each CUDA kernel, as the profiler's trace names it.
-KERNEL_SYMBOLS = {"decay_prune_multi": "decay_prune_multi_kernel",
-                  "score_gate": "score_gate_kernel",
-                  "bucket_topk": "bucket_topk_kernel"}
 
 
 def log(*a):
@@ -79,31 +75,6 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, name: str, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time in ms of kernel ``name`` alone over ``reps`` calls
-    of ``fn``, read from the profiler's trace: no allocation, argument
-    marshalling or plain reduction of the wrapper around it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and KERNEL_SYMBOLS[name] in e.key]
-    n = sum(e.count for e in rows)
-    if n != reps:
-        raise AssertionError(f"profiler saw {n} launches of "
-                             f"{KERNEL_SYMBOLS[name]}, expected {reps}")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / n
-
-
 def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -128,7 +99,7 @@ def check_decay_prune(C: int, n_aux: int, dev):
     import numpy as np
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decay_prune import decay_prune_multi
+    from repro_torch.kernels.decay_prune import decay_prune_multi, launch
     rng = np.random.default_rng(SEED + C)
     dead = rng.random(C) < 0.4
     kh, kl = _u32_lane(rng, C, dead, dev), _u32_lane(rng, C, dead, dev)
@@ -144,8 +115,10 @@ def check_decay_prune(C: int, n_aux: int, dev):
         if not torch.equal(g.view(torch.int32), e.view(torch.int32)):
             raise AssertionError(f"decay_prune_multi C={C}: lanes differ")
     err = float((got[2][0] - exp[2][0]).abs().max())
-    run = lambda: decay_prune_multi(kh, kl, [w], aux, f, 0.05)
-    ms, wrapper_ms = kernel_ms(run, "decay_prune_multi"), time_ms(run)
+    outs = [torch.empty_like(t) for t in (kh, kl, w)]
+    a_out = [torch.empty_like(a) for a in aux]
+    ms = time_ms(lambda: launch(kh, kl, w, aux, *outs, a_out, f, 0.05))
+    wrapper_ms = time_ms(lambda: decay_prune_multi(kh, kl, [w], aux, f, 0.05))
     plain_ms = time_ms(lambda: ref.decay_prune_multi_ref(
         kh, kl, [w], aux, torch.tensor(f), 0.05))
     lanes = 2 + 1 + n_aux
@@ -182,7 +155,7 @@ def check_score_gate(C: int, dev):
     import torch
     from repro_torch.core.ranking import RankConfig
     from repro_torch.kernels import ref
-    from repro_torch.kernels.topk_select import score_gate
+    from repro_torch.kernels.topk_select import launch_score_gate, score_gate
     rc = RankConfig()
     gates = dict(min_pair_weight=rc.min_pair_weight,
                  min_src_weight=rc.min_src_weight,
@@ -211,8 +184,10 @@ def check_score_gate(C: int, dev):
         log(f"  score_gate half_life={half_life}: max_abs_err={e!r} "
             f"gate flips within 1 ulp of min_pair_weight={n_flips}")
     kw = dict(coefs=rc.coefs, half_life=None, **gates)
-    run = lambda: score_gate(*lanes, ok, lt, *sc, **kw)
-    ms, wrapper_ms = kernel_ms(run, "score_gate"), time_ms(run)
+    scalars, out = torch.stack(sc), torch.empty_like(lanes[0])
+    ms = time_ms(lambda: launch_score_gate(
+        lanes, ok, None, scalars, rc.coefs, tuple(gates.values()), None, out))
+    wrapper_ms = time_ms(lambda: score_gate(*lanes, ok, lt, *sc, **kw))
     plain_ms = time_ms(lambda: ref.score_gate_ref(
         *lanes, ok, sc[0], sc[1], rc.coefs, **gates))
     b_ms, b_by = bound(C * (6 * 4 + 1 + 4), C * SCORE_OPS_PER_SLOT)
@@ -227,7 +202,7 @@ def check_bucket_topk(R: int, L: int, K: int, dev):
     import numpy as np
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.topk_select import bucket_topk
+    from repro_torch.kernels.topk_select import bucket_topk, launch_bucket_topk
     rng = np.random.default_rng(SEED + 2)
     g = np.floor(rng.random((R, L), dtype=np.float32) * 64)     # many ties
     g[rng.random((R, L)) < 0.5] = -np.inf
@@ -239,8 +214,9 @@ def check_bucket_topk(R: int, L: int, K: int, dev):
     if not (torch.equal(vals, ev) and torch.equal(args[fin], ea[fin])):
         raise AssertionError("bucket_topk differs from the plain version")
     err = float((vals[fin] - ev[fin]).abs().max())
-    run = lambda: bucket_topk(grid, K)
-    ms, wrapper_ms = kernel_ms(run, "bucket_topk"), time_ms(run)
+    bv, ba = torch.empty_like(vals), torch.empty_like(args)
+    ms = time_ms(lambda: launch_bucket_topk(grid, bv, ba))
+    wrapper_ms = time_ms(lambda: bucket_topk(grid, K))
     plain_ms = time_ms(lambda: ref.bucket_topk_ref(grid, K))
     library_ms = time_ms(lambda: torch.topk(grid, K, dim=1))
     b_ms, b_by = bound(R * L * 4 + R * K * 8, R * L * K)

@@ -71,14 +71,26 @@ def decay_prune_multi(key_hi: torch.Tensor, key_lo: torch.Tensor,
     out_hi, out_lo = torch.empty_like(key_hi), torch.empty_like(key_lo)
     w_out = torch.empty_like(w)
     a_out = tuple(torch.empty_like(a) for a in aux_lanes)
+    launch(key_hi, key_lo, w, aux_lanes, out_hi, out_lo, w_out, a_out,
+           decay_factor, threshold)
+    keep = (out_hi != 0) | (out_lo != 0)
+    return (out_hi, out_lo, (w_out,), a_out, keep.sum(dtype=torch.int32),
+            w_out.sum())
+
+
+def launch(key_hi, key_lo, w, aux_lanes, out_hi, out_lo, w_out, a_out,
+           decay_factor, threshold: float) -> None:
+    """Launch the CUDA kernel into the given output lanes, counting it.
+
+    The bare launch under :func:`decay_prune_multi`, which checks and
+    allocates the lanes; a caller passes CUDA lanes of equal length.
+    """
     a_ptrs = (ctypes.c_uint64 * max(2 * len(a_out), 1))(
         *[t.data_ptr() for t in (*aux_lanes, *a_out)])
     code = _entry()(key_hi.data_ptr(), key_lo.data_ptr(), w.data_ptr(),
                     out_hi.data_ptr(), out_lo.data_ptr(), w_out.data_ptr(),
                     a_ptrs, len(a_out), float(decay_factor), float(threshold),
-                    n, torch.cuda.current_stream(key_hi.device).cuda_stream)
+                    key_hi.shape[0],
+                    torch.cuda.current_stream(key_hi.device).cuda_stream)
     check_launch(code, "decay_prune_multi")
     LAUNCHES["decay_prune_multi"] += 1
-    keep = (out_hi != 0) | (out_lo != 0)
-    return (out_hi, out_lo, (w_out,), a_out, keep.sum(dtype=torch.int32),
-            w_out.sum())

@@ -83,16 +83,28 @@ def score_gate(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick, total_w,
         torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
         for x in (total_w, total_c, 0 if now is None else now)])
     out = torch.empty_like(w_ab)
+    launch_score_gate(lanes, ok, lt_ptr, scalars, coefs,
+                      (min_pair_weight, min_src_weight, min_pair_count),
+                      half_life, out)
+    return out
+
+
+def launch_score_gate(lanes, ok, lt_ptr, scalars, coefs, gates, half_life,
+                      out) -> None:
+    """Launch the score_gate kernel into ``out``, counting it.
+
+    The bare launch under :func:`score_gate`, which checks the lanes and
+    stacks ``scalars`` (f32[3]: total_w, total_c, now); ``lt_ptr`` is the
+    ``last_tick`` lane's pointer, or None without ``half_life``.
+    """
     c0, c1, c2, c3 = (float(c) for c in coefs)
     code = _score_gate_entry()(
         *[t.data_ptr() for t in lanes], ok.data_ptr(), lt_ptr,
-        scalars.data_ptr(), c0, c1, c2, c3, float(min_pair_weight),
-        float(min_src_weight), float(min_pair_count),
-        0.0 if half_life is None else float(half_life), out.data_ptr(), n,
-        torch.cuda.current_stream(dev).cuda_stream)
+        scalars.data_ptr(), c0, c1, c2, c3, *(float(g) for g in gates),
+        0.0 if half_life is None else float(half_life), out.data_ptr(),
+        out.shape[0], torch.cuda.current_stream(out.device).cuda_stream)
     check_launch(code, "score_gate")
     LAUNCHES["score_gate"] += 1
-    return out
 
 
 def bucket_topk(grid: torch.Tensor, k: int
@@ -116,11 +128,18 @@ def bucket_topk(grid: torch.Tensor, k: int
                          f"{lib.repro_bucket_topk_max_width()} registers/row")
     vals = torch.empty((R, k), dtype=torch.float32, device=grid.device)
     args = torch.empty((R, k), dtype=torch.int32, device=grid.device)
-    code = lib.repro_bucket_topk(grid.data_ptr(), R, L, int(k),
-                                 vals.data_ptr(), args.data_ptr(),
-                                 torch.cuda.current_stream(grid.device)
-                                 .cuda_stream)
+    launch_bucket_topk(grid, vals, args)
+    return vals, args
+
+
+def launch_bucket_topk(grid, vals, args) -> None:
+    """Launch the bucket_topk kernel into ``vals``/``args`` [R, k],
+    counting it. The bare launch under :func:`bucket_topk`, which checks
+    ``grid`` and allocates the outputs."""
+    (R, L), k = grid.shape, vals.shape[1]
+    code = _bucket_topk_lib().repro_bucket_topk(
+        grid.data_ptr(), R, L, int(k), vals.data_ptr(), args.data_ptr(),
+        torch.cuda.current_stream(grid.device).cuda_stream)
     check_launch(code, "bucket_topk")
     LAUNCHES["bucket_topk"] += 1
-    return vals, args
 
