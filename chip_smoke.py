@@ -8,18 +8,23 @@ Phases, each of which must pass:
   1. card and build — the card's name and power limit (nvidia-smi), then
      every CUDA kernel built from ``src/repro_torch/kernels/csrc``;
   2. kernels at main-path shapes — each kernel against its plain torch
-     version on the card (random inputs from a numpy seed): max error; the
-     kernel's own time (its bare launch into preallocated outputs), the
-     wrapper's, the plain version's and the library call's time (CUDA
-     events, median of 20 after warm-up); and the least time the
-     card could take (HBM bytes at 3.35 TB/s or operations at 67 TFLOP/s
-     f32, whichever is larger);
+     version on the card (random inputs from a numpy seed; ``chain_find``
+     on the region store and the largest pair batch of the phase-4 region
+     run): max error; the kernel's own time (its bare launch into
+     preallocated outputs), the wrapper's, the plain version's and the
+     library call's time (CUDA events, median of 20 after warm-up); and
+     the least time the card could take (HBM bytes at 3.35 TB/s or
+     operations at 67 TFLOP/s f32, whichever is larger);
   3. the engine on the card against the engine on the CPU at a small size
-     (state under the parity contract, suggestions);
-  4. the main path at deployment scale — ``SearchAssistanceEngine.step``
-     for 17 ticks (4 decay sweeps, 2 rank cycles), with every kernel's
-     launch count read around that run; no drops, suggestions out;
-  5. determinism — the same stream twice gives bit-identical state.
+     (state under the parity contract, suggestions), under both cooc
+     layouts (hash: sweep policy; region: sweep and lazy policies);
+  4. the main paths at deployment scale — ``SearchAssistanceEngine.step``
+     for 17 ticks (4 decay sweeps, 2 rank cycles), once with the hash cooc
+     layout and once with the region layout, each with its kernels'
+     launch counts set to 0 just before and read just after; suggestions
+     out, no drops on the hash path (region drops are printed);
+  5. determinism — the same stream twice gives bit-identical state, under
+     each layout.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -155,7 +160,9 @@ def check_score_gate(C: int, dev):
     import torch
     from repro_torch.core.ranking import RankConfig
     from repro_torch.kernels import ref
-    from repro_torch.kernels.topk_select import launch_score_gate, score_gate
+    from repro_torch.kernels.topk_select import (decay_exp2,
+                                                 launch_score_gate,
+                                                 score_gate)
     rc = RankConfig()
     gates = dict(min_pair_weight=rc.min_pair_weight,
                  min_src_weight=rc.min_src_weight,
@@ -167,8 +174,7 @@ def check_score_gate(C: int, dev):
                          half_life=half_life, **gates)
         w_eff = lanes[0]
         if half_life is not None:
-            dt = torch.clamp_min(sc[2] - lt.float(), 0.0)
-            w_eff = w_eff * torch.exp2(-dt / half_life)
+            w_eff = decay_exp2(lanes[0], lt, sc[2], half_life)
         exp = ref.score_gate_ref(w_eff, *lanes[1:], ok, sc[0], sc[1],
                                  rc.coefs, **gates)
         both = torch.isfinite(got) & torch.isfinite(exp)
@@ -192,6 +198,143 @@ def check_score_gate(C: int, dev):
         *lanes, ok, sc[0], sc[1], rc.coefs, **gates))
     b_ms, b_by = bound(C * (6 * 4 + 1 + 4), C * SCORE_OPS_PER_SLOT)
     return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_assoc_score(C: int, dev):
+    """The stand-alone assoc_score kernel against score_body at rtol 1e-5,
+    atol 1e-6 (no engine caller: its launches on the main paths are 0)."""
+    import torch
+    from repro_torch.core.ranking import RankConfig
+    from repro_torch.kernels.assoc_score import (assoc_score,
+                                                 launch_assoc_score,
+                                                 score_body)
+    coefs = RankConfig().coefs
+    lanes, _, _, sc = _score_inputs(C, dev)
+    got = assoc_score(*lanes, sc[0], sc[1], coefs=coefs)
+    exp = score_body(*lanes, sc[0], sc[1], coefs)
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-6)
+    err = float((got - exp).abs().max())
+    totals, out = torch.stack(sc[:2]), torch.empty_like(lanes[0])
+    ms = time_ms(lambda: launch_assoc_score(lanes, totals, coefs, out))
+    wrapper_ms = time_ms(lambda: assoc_score(*lanes, sc[0], sc[1],
+                                             coefs=coefs))
+    plain_ms = time_ms(lambda: score_body(*lanes, sc[0], sc[1], coefs))
+    b_ms, b_by = bound(C * 7 * 4, C * SCORE_OPS_PER_SLOT)
+    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_region_rank(R: int, W: int, K: int, dev):
+    """region_rank with and without in-kernel decay against the plain
+    version: npass and the gate masks equal apart from rows where the lazy
+    gate sits within 1 ulp of min_pair_weight (counted and printed); every
+    other row's values and columns equal exactly."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ranking import RankConfig
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.topk_select import (decay_exp2,
+                                                 launch_region_rank,
+                                                 region_rank)
+    rc = RankConfig()
+    gates = dict(min_pair_weight=rc.min_pair_weight,
+                 min_src_weight=rc.min_src_weight,
+                 min_pair_count=rc.min_pair_count)
+    rng = np.random.default_rng(SEED + 3)
+    mk = lambda *s: torch.from_numpy(rng.random(s, dtype=np.float32)).to(dev)
+    w_ab, c_ab = mk(R, W) * 5, torch.floor(mk(R, W) * 20)
+    w_a, w_b = mk(R) * 50, mk(R, W) * 50
+    c_a = torch.floor(mk(R) * 100) + 20
+    c_b = torch.maximum(c_ab, torch.floor(mk(R, W) * 100))
+    lanes = (w_ab, c_ab, w_a, w_b, c_a, c_b)
+    ok = torch.from_numpy(rng.random((R, W)) < 0.8).to(dev)
+    lt = torch.from_numpy(rng.integers(0, 17, (R, W)).astype(np.int32)).to(dev)
+    sc = [torch.tensor(x, dtype=torch.float32, device=dev)
+          for x in (float(R * W) * 2.0, float(R * W) * 4.0, 17.0)]
+    kw = dict(k=K, coefs=rc.coefs, **gates)
+    err, lazy_ms = 0.0, None
+    for half_life in (None, 36.0):
+        vals, args, npass = region_rank(*lanes, ok, lt, *sc,
+                                        half_life=half_life, **kw)
+        w_eff = w_ab
+        if half_life is not None:
+            w_eff = decay_exp2(w_ab, lt, sc[2], half_life)
+        ev, ea, en = ref.region_rank_ref(w_eff, *lanes[1:], ok, sc[0], sc[1],
+                                         **kw)
+        near = ((w_eff - rc.min_pair_weight).abs()
+                <= 2.0 ** -23 * 0.25).any(1)
+        same = (npass == en) & (vals == ev).all(1) & (args == ea).all(1)
+        n_flip_rows = int((~same).sum())
+        if n_flip_rows != int((~same & near).sum()):
+            raise AssertionError("region_rank differs from the plain version "
+                                 "away from the min_pair_weight boundary")
+        fin = (vals > -torch.inf) & (ev > -torch.inf) & same[:, None]
+        e = float((vals[fin] - ev[fin]).abs().max())
+        err = max(err, e)
+        log(f"  region_rank half_life={half_life}: max_abs_err={e!r}, rows "
+            f"differing (gate within 1 ulp of min_pair_weight)="
+            f"{n_flip_rows} of {R}")
+        if half_life is not None:
+            scalars = torch.stack(sc)
+            bufs = (torch.empty_like(vals), torch.empty_like(args),
+                    torch.empty_like(npass))
+            lazy_ms = time_ms(lambda: launch_region_rank(
+                lanes, ok, lt.data_ptr(), scalars, rc.coefs,
+                tuple(gates.values()), 36.0, *bufs))
+    scalars = torch.stack(sc)
+    bufs = (torch.empty_like(vals), torch.empty_like(args),
+            torch.empty_like(npass))
+    ms = time_ms(lambda: launch_region_rank(
+        lanes, ok, None, scalars, rc.coefs, tuple(gates.values()), None,
+        *bufs))
+    wrapper_ms = time_ms(lambda: region_rank(*lanes, ok, lt, *sc, **kw))
+    plain_ms = time_ms(lambda: ref.region_rank_ref(*lanes, ok, sc[0], sc[1],
+                                                   **kw))
+    b_ms, b_by = bound(R * W * 17 + R * (8 + K * 8 + 4),
+                       R * W * SCORE_OPS_PER_SLOT)
+    lazy_b_ms, _ = bound(R * W * 21 + R * (8 + K * 8 + 4),
+                         R * W * SCORE_OPS_PER_SLOT)
+    log(f"  region_rank lazy (half_life=36): ms={lazy_ms!r} "
+        f"bound_ms={lazy_b_ms!r}")
+    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_chain_find(table, batch, dev):
+    """chain_find on the region store of the phase-4 region run and its
+    largest pair batch, held exactly against the plain version."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.region_probe import chain_find, launch_chain_find
+    R, W = table.n_regions, table.width
+    kh, kl = table.key_hi.view(R, W), table.key_lo.view(R, W)
+    regs, dh, dl, active = batch
+    B, MC = regs.shape
+    got = chain_find(kh, kl, regs, dh, dl, active)
+    exp = ref.chain_find_ref(kh, kl, regs, dh, dl, active)
+    if not torch.equal(got, exp):
+        raise AssertionError("chain_find differs from the plain version")
+    # depths this data visits: up to the hit, else the whole chain
+    n_regs = (regs >= 0).sum(1)
+    hit_depth = torch.argmax((regs == torch.div(
+        got, W, rounding_mode="floor")[:, None]).to(torch.uint8), 1)
+    visited = torch.where(got >= 0, hit_depth + 1, n_regs)
+    n_visits = int(torch.where(active, visited, 0).sum())
+    log(f"  chain_find: {B} rows ({int(active.sum())} active, "
+        f"{int((got >= 0).sum())} hits), {n_visits} region rows visited, "
+        f"MC={MC}, W={W}")
+    out = torch.empty_like(got)
+    ms = time_ms(lambda: launch_chain_find(kh, kl, regs, dh, dl, active, out))
+    wrapper_ms = time_ms(lambda: chain_find(kh, kl, regs, dh, dl, active))
+    plain_ms = time_ms(lambda: ref.chain_find_ref(kh, kl, regs, dh, dl,
+                                                  active))
+    b_ms, b_by = bound(n_visits * W * 8 + B * (MC * 4 + 8 + 1 + 4),
+                       n_visits * W * 2)
+    return dict(max_abs_err=0.0, ms=ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -229,15 +372,17 @@ def check_bucket_topk(R: int, L: int, K: int, dev):
 # Phases 3-5: the engine.
 # ---------------------------------------------------------------------------
 
-def small_parity(dev) -> None:
+def small_parity(dev, layout="hash", lazy=False) -> None:
     """The engine on the card against the engine on the CPU, on the
     ``tests/test_engine.py`` stream and configuration (9 ticks)."""
     import numpy as np
+    from repro_torch.core.decay import DecayConfig
     from repro_torch.core.engine import EngineConfig, SearchAssistanceEngine
     from repro_torch.data.stream import StreamConfig, SyntheticStream
+    kw = dict(decay=DecayConfig(policy="lazy"), prune_every=4) if lazy else {}
     cfg = EngineConfig(query_capacity=1 << 12, cooc_capacity=1 << 14,
                        session_capacity=1 << 11, session_window=4,
-                       decay_every=4, rank_every=8)
+                       decay_every=4, rank_every=8, cooc_layout=layout, **kw)
     engines = []
     for device in (dev, "cpu"):
         stream = SyntheticStream(StreamConfig(
@@ -267,28 +412,29 @@ def small_parity(dev) -> None:
         agree += [d for d, _ in sa[f][:3]] == [d for d, _ in sb[f][:3]]
     if agree < 0.95 * len(sa):
         raise AssertionError(f"top-3 agreement {agree}/{len(sa)}")
-    log(f"  card vs CPU: {n_exact}/{len(a)} leaves bit-identical, keys and "
+    log(f"  {layout} layout, {'lazy' if lazy else 'sweep'} policy, card vs "
+        f"CPU: {n_exact}/{len(a)} leaves bit-identical, keys and "
         f"slots exact, {len(sa)} sources, top-3 identity agreement "
         f"{agree}/{len(sa)}")
 
 
-def deployment_config():
+def deployment_config(layout="hash"):
     from repro_torch.core.engine import EngineConfig
     from repro_torch.data.stream import StreamConfig
     return (EngineConfig(query_capacity=1 << 22, cooc_capacity=1 << 24,
                          session_capacity=1 << 20, decay_every=4,
-                         rank_every=8),
+                         rank_every=8, cooc_layout=layout),
             StreamConfig(vocab_size=65536, n_users=200000,
                          queries_per_tick=16384, tweets_per_tick=2048))
 
 
-def main_path(dev, ticks):
+def main_path(dev, ticks, layout):
     """Drive SearchAssistanceEngine.step over the pre-generated ticks with
     the launch counts set to 0 just before and read just after."""
     import torch
     from repro_torch import kernels as tk
     from repro_torch.core import engine as te
-    cfg, scfg = deployment_config()
+    cfg, scfg = deployment_config(layout)
     eng = te.SearchAssistanceEngine(cfg, device=dev)
     cycle_ms = {"decay": [], "rank": []}
 
@@ -316,7 +462,8 @@ def main_path(dev, ticks):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             if res:
                 results.append(res)
-                log(f"  tick {res['tick']}: rank cycle -> {res['n_suggest']} "
+                log(f"  {layout} tick {res['tick']}: rank cycle -> "
+                    f"{res['n_suggest']} "
                     f"queries with suggestions ({res['n_rows']} rows, "
                     f"{res['n_overflow']} overflow)")
     finally:
@@ -354,10 +501,10 @@ def _profiled(label, fn) -> None:
         log(f"    {ms:9.3f} ms  x{n:<5d} {key[:90]}")
 
 
-def profile_tick(eng, tick) -> None:
+def profile_tick(eng, tick, layout) -> None:
     """One more ingest-only tick, then one rank cycle, under the profiler."""
-    _profiled("ingest tick", lambda: eng.step(*tick))
-    _profiled("rank cycle", eng.run_rank_cycle)
+    _profiled(f"{layout} ingest tick", lambda: eng.step(*tick))
+    _profiled(f"{layout} rank cycle", eng.run_rank_cycle)
 
 
 def state_bits_equal(a, b) -> bool:
@@ -366,6 +513,101 @@ def state_bits_equal(a, b) -> bool:
     return sa.keys() == sb.keys() and all(
         sa[k].dtype == sb[k].dtype and sa[k].tobytes() == sb[k].tobytes()
         for k in sa)
+
+
+def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
+    """Phase 4 for one cooc layout: drive the path, check and report it.
+    Returns (launches, the largest chain_find batch or None)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ops as kops
+    cfg, _ = deployment_config(layout)
+    largest = {}
+    chain_find = kops.chain_find
+
+    def spy(khi, klo, regs, dh, dl, active):
+        # keep the largest pair batch (most active rows) for phase 2's
+        # chain_find check
+        n = int(active.sum())
+        if n > largest.get("n", -1):
+            largest.update(n=n, batch=tuple(
+                t.clone() for t in (regs, dh, dl, active)))
+        return chain_find(khi, klo, regs, dh, dl, active)
+
+    kops.chain_find = spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng, step_ms, cycle_ms, results, launches = main_path(dev, ticks,
+                                                              layout)
+    finally:
+        kops.chain_find = chain_find
+    st = eng.state
+    drops = {n: int(getattr(st, n).n_dropped)
+             for n in ("qstore", "cooc", "sessions")}
+    Q, C = cfg.query_capacity, cfg.cooc_capacity
+    live_q, live_c = int(st.qstore.live_count()), int(st.cooc.live_count())
+    log(f"  {layout} launches on the main path: {launches}")
+    log(f"  {layout} n_dropped {drops}; live qstore {live_q}/{Q}, "
+        f"cooc {live_c}/{C}")
+    if layout == "region":
+        t = st.cooc
+        held = torch.where(t.chain_region >= 0, t.region_fill[
+            torch.clamp(t.chain_region, 0).long()], 0).sum(1)
+        depth = torch.bincount((t.chain_region >= 0).sum(1),
+                               minlength=t.max_chain + 1).tolist()
+        room = t.width * t.max_chain
+        n_full = int((held == room).sum())
+        log(f"  region: W={t.width}, {t.n_regions} regions, "
+            f"c_free_regions={int(t.free_regions())}; directory rows by "
+            f"chain depth 0..{t.max_chain}: {depth}; full chains "
+            f"({room} pairs): {n_full}; last maintenance "
+            f"{eng.last_maintenance}")
+    elif any(drops.values()):
+        raise AssertionError(f"dropped updates at deployment scale: {drops}")
+    if len(results) != 2 or results[-1]["n_suggest"] <= 0:
+        raise AssertionError(f"{layout} rank cycles: {results}")
+    missing = [n for n in tk.PATH_KERNELS[layout] if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {layout} path: "
+                             f"{missing}")
+    if eng.n_decay_cycles != 4:
+        raise AssertionError(f"decay cycles: {eng.n_decay_cycles}")
+    ev_per_tick = scfg.queries_per_tick + scfg.tweets_per_tick
+    plain = [m for i, m in enumerate(step_ms)
+             if i % cfg.decay_every and i % cfg.rank_every]
+    main = {
+        "ms_per_tick_mean": statistics.mean(step_ms),
+        "ms_per_tick_median": statistics.median(step_ms),
+        "ms_per_ingest_only_tick_median": statistics.median(plain),
+        "events_per_s": ev_per_tick * len(step_ms) / (sum(step_ms) / 1e3),
+        "decay_cycle_ms": cycle_ms["decay"],
+        "rank_cycle_ms": cycle_ms["rank"],
+        "step_ms": step_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"  {layout} main path: " + json.dumps(main))
+    profile_tick(eng, extra_tick, layout)
+    for i in range(5):
+        q = stream.vocab[i]
+        sugg = eng.suggest_fp(stream.tok.query_fp(q), k=4)
+        log(f"  {layout} {q!r:24s} -> "
+            f"{[(stream.tok.text(d), round(s, 3)) for d, s in sugg]}")
+    return eng, launches, largest.get("batch")
+
+
+def two_runs_bit_identical(dev, ticks, layout) -> None:
+    from repro_torch.core.engine import SearchAssistanceEngine
+    cfg, _ = deployment_config(layout)
+    runs = []
+    for _ in range(2):
+        e = SearchAssistanceEngine(cfg, device=dev)
+        for events, tweets in ticks[:5]:
+            e.step(events, tweets)
+        runs.append(e)
+    if not state_bits_equal(*runs):
+        raise AssertionError(f"two {layout} runs of the same stream differ")
+    log(f"[5] determinism: two 5-tick {layout} runs (one decay sweep) "
+        f"bit-identical")
 
 
 def main() -> int:
@@ -400,98 +642,74 @@ def main() -> int:
 
     # ---- 2. kernels at main-path shapes ----
     cfg, _ = deployment_config()
+    rcfg, _ = deployment_config("region")
     C, Q = cfg.cooc_capacity, cfg.query_capacity
     R = min(Q, int(C * cfg.rank.seg_arena_frac))
     L, K = max(cfg.rank.bucket_rows, cfg.rank.top_k), cfg.rank.top_k
+    RW = rcfg.region_w
     log(f"[2] kernels vs plain versions: cooc C={C}, qstore C={Q}, "
-        f"grid {R}x{L}, K={K}")
+        f"grid {R}x{L}, K={K}; region grid {C // RW}x{RW}, "
+        f"K1={min(K, RW)}")
     rows = {}
     rows["decay_prune_multi"] = check_decay_prune(C, 6, dev)
     q_row = check_decay_prune(Q, 2, dev)
     log(f"  decay_prune_multi qstore C={Q}: {json.dumps(q_row)}")
     rows["score_gate"] = check_score_gate(C, dev)
     rows["bucket_topk"] = check_bucket_topk(R, L, K, dev)
+    rows["region_rank"] = check_region_rank(C // RW, RW, min(K, RW), dev)
+    rows["assoc_score"] = check_assoc_score(C, dev)
     for name, row in rows.items():
         log(f"  {name} at its main-path shape: {json.dumps(row)}")
-    log("kernels " + " ".join(f"{n}=ok" for n in rows))
     torch.cuda.empty_cache()
 
     # ---- 3. card vs CPU at a small size ----
     log("[3] engine on the card vs engine on the CPU (test_engine stream)")
     small_parity(dev)
+    small_parity(dev, "region")
+    small_parity(dev, "region", lazy=True)
 
-    # ---- 4. main path at deployment scale ----
+    # ---- 4. main paths at deployment scale ----
     from repro_torch.data.stream import SyntheticStream
-    cfg, scfg = deployment_config()
+    _, scfg = deployment_config()
     n_ticks = 17
     t0 = time.perf_counter()
     stream = SyntheticStream(scfg, seed=SEED)
     ticks = [stream.gen_tick(t) for t in range(n_ticks)]
     extra_tick = stream.gen_tick(n_ticks)
-    log(f"[4] main path: {n_ticks} ticks of {scfg.queries_per_tick} queries "
-        f"+ {scfg.tweets_per_tick} tweets; stream generated in "
+    log(f"[4] main paths: {n_ticks} ticks of {scfg.queries_per_tick} "
+        f"queries + {scfg.tweets_per_tick} tweets; stream generated in "
         f"{time.perf_counter() - t0:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
-    eng, step_ms, cycle_ms, results, launches = main_path(dev, ticks)
-    st = eng.state
-    drops = {n: int(getattr(st, n).n_dropped)
-             for n in ("qstore", "cooc", "sessions")}
-    live_q, live_c = int(st.qstore.live_count()), int(st.cooc.live_count())
-    log(f"  launches on the main path: {launches}")
-    log(f"  n_dropped {drops}; live qstore {live_q}/{Q}, cooc {live_c}/{C}")
-    if any(drops.values()):
-        raise AssertionError(f"dropped updates at deployment scale: {drops}")
-    if len(results) != 2 or results[-1]["n_suggest"] <= 0:
-        raise AssertionError(f"rank cycles: {results}")
-    missing = [n for n in tk.KERNELS if launches[n] <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    if eng.n_decay_cycles != 4:
-        raise AssertionError(f"decay cycles: {eng.n_decay_cycles}")
-    ev_per_tick = scfg.queries_per_tick + scfg.tweets_per_tick
-    plain = [m for i, m in enumerate(step_ms)
-             if i % cfg.decay_every and i % cfg.rank_every]
-    main = {
-        "ms_per_tick_mean": statistics.mean(step_ms),
-        "ms_per_tick_median": statistics.median(step_ms),
-        "ms_per_ingest_only_tick_median": statistics.median(plain),
-        "events_per_s": ev_per_tick * len(step_ms) / (sum(step_ms) / 1e3),
-        "decay_cycle_ms": cycle_ms["decay"],
-        "rank_cycle_ms": cycle_ms["rank"],
-        "step_ms": step_ms,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-    }
-    log("  main path: " + json.dumps(main))
-    profile_tick(eng, extra_tick)
-    for i in range(5):
-        q = stream.vocab[i]
-        sugg = eng.suggest_fp(stream.tok.query_fp(q), k=4)
-        log(f"  {q!r:24s} -> "
-            f"{[(stream.tok.text(d), round(s, 3)) for d, s in sugg]}")
-    del eng, st
+    launches = {}
+    eng, launches["hash"], _ = run_main_path(dev, ticks, extra_tick, scfg,
+                                             "hash", stream)
+    del eng
+    torch.cuda.empty_cache()
+    eng, launches["region"], batch = run_main_path(dev, ticks, extra_tick,
+                                                   scfg, "region", stream)
+    log("[2] chain_find at the region run's shapes")
+    rows["chain_find"] = check_chain_find(eng.state.cooc, batch, dev)
+    log(f"  chain_find at its main-path shape: "
+        f"{json.dumps(rows['chain_find'])}")
+    log("kernels " + " ".join(f"{n}=ok" for n in rows))
+    del eng, batch
     torch.cuda.empty_cache()
 
     # ---- 5. determinism ----
-    from repro_torch.core.engine import SearchAssistanceEngine
-    runs = []
-    for _ in range(2):
-        e = SearchAssistanceEngine(cfg, device=dev)
-        for events, tweets in ticks[:5]:
-            e.step(events, tweets)
-        runs.append(e)
-    if not state_bits_equal(*runs):
-        raise AssertionError("two runs of the same stream differ")
-    log("[5] determinism: two 5-tick runs (one decay sweep) bit-identical")
-    del runs
+    two_runs_bit_identical(dev, ticks, "hash")
+    two_runs_bit_identical(dev, ticks, "region")
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),
                "score_gate": ("score_gate.cu", "topk_select.py:78"),
-               "bucket_topk": ("bucket_topk.cu", "topk_select.py:150")}
+               "bucket_topk": ("bucket_topk.cu", "topk_select.py:150"),
+               "chain_find": ("chain_find.cu", "region_probe.py:50"),
+               "region_rank": ("region_rank.cu", "topk_select.py:236"),
+               "assoc_score": ("assoc_score.cu", "assoc_score.py:81")}
     record = {"kernels": [
         {"name": n, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{sources[n][0]}",
          "replaces": f"src/repro/kernels/{sources[n][1]}",
-         "launches": launches[n],
+         "launches": sum(launches[p][n] for p in launches),
+         "launches_by_path": {p: launches[p][n] for p in launches},
          **{k: v for k, v in rows[n].items() if k != "wrapper_ms"}}
         for n in tk.KERNELS]}
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,6 @@
 """Temporal decay of accumulated statistics (paper §2.4, §4.3).
 
-Port of the hash half of the JAX package's ``core/decay.py``. Two policies:
+Port of the JAX package's ``core/decay.py``. Two policies:
 
   * ``sweep`` — the paper's periodic decay cycle: one pass over the table
     multiplying every weight lane and clearing pruned slots. On CUDA it is
@@ -9,6 +9,9 @@ Port of the hash half of the JAX package's ``core/decay.py``. Two policies:
     before adding, and only :func:`prune_sweep` runs, at a longer cadence.
 
 Exponential decay is memoryless, so the two compose to the same values.
+The region layout's sweeps (:func:`region_decay_sweep`,
+:func:`region_prune_sweep`) add the region maintenance; the JAX package
+computes them in jnp, outside any Pallas kernel, and so do these in torch.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Tuple
 import torch
 
 from ..kernels import ops as kops
-from .stores import HashTable
+from .stores import HashTable, RegionTable, region_chain_state
 
 EXP, LINEAR, STEP = "exp", "linear", "step"
 
@@ -110,3 +113,106 @@ def prune_sweep(table: HashTable, now, *, cfg: DecayConfig,
                                         tick_override=now,
                                         tick_lane=tick_lane)
     return new, live, tot, live_before - live
+
+
+# ---------------------------------------------------------------------------
+# Region-layout sweeps (source-major cooccurrence store).
+# ---------------------------------------------------------------------------
+
+def _pack_rows(x: torch.Tensor, keep: torch.Tensor, fill_value
+               ) -> torch.Tensor:
+    """Move each row's kept entries to its front, in order; the rest of the
+    row takes ``fill_value``. Equals the JAX sweeps' stable argsort of
+    ``~keep`` per row followed by a gather, because every entry that is not
+    kept already holds ``fill_value`` there."""
+    rows, width = keep.shape
+    dest = torch.cumsum(keep, 1) - 1 + torch.arange(
+        rows, device=keep.device)[:, None] * width
+    out = torch.full((rows * width,), fill_value, dtype=x.dtype,
+                     device=x.device)
+    flat = keep.reshape(-1)
+    out[dest.reshape(-1)[flat]] = x.reshape(-1)[flat]
+    return out
+
+
+def _region_sweep(table: RegionTable, qstore: HashTable, f,
+                  cfg: DecayConfig, weight_lanes: Tuple[str, ...],
+                  tick_override, tick_lane: str):
+    """Shared region sweep: decay + prune per slot, then restore the
+    layout's invariants: compact every region live-first (insertion order
+    kept), recount ``region_fill``, reclaim orphaned chains (source pruned
+    from the qstore, or its slot taken by another fingerprint), unlink
+    emptied regions from their chains and return them to the freelist.
+    Returns (table, live, total_weight, reclaimed)."""
+    R, W = table.n_regions, table.width
+    lanes = dict(table.lanes)
+    primary = weight_lanes[0]
+    live = table.live_mask
+    live_before = live.sum(dtype=torch.int32)
+    decayed = {name: lanes[name] * f for name in weight_lanes}
+    keep = live & (decayed[primary] >= cfg.prune_threshold)
+
+    # a chain whose source no longer owns its qstore slot is dead.
+    _, ent_ok, referenced = region_chain_state(table, qstore)
+    keep = keep & referenced.repeat_interleave(W)
+
+    # cleared slots zero every lane: a freed slot's last_tick feeds later
+    # rebase-on-write.
+    for name in weight_lanes:
+        lanes[name] = torch.where(keep, decayed[name],
+                                  torch.zeros_like(decayed[name]))
+    if tick_override is not None:
+        lt = lanes[tick_lane]
+        lanes[tick_lane] = torch.where(
+            keep, torch.as_tensor(tick_override, dtype=lt.dtype,
+                                  device=lt.device).expand(keep.shape),
+            torch.zeros_like(lt))
+    for name, lane in lanes.items():
+        if name in weight_lanes or (tick_override is not None
+                                    and name == tick_lane):
+            continue
+        lanes[name] = torch.where(keep, lane, torch.zeros_like(lane))
+
+    # compact each region live-first.
+    keep2 = keep.reshape(R, W)
+    zero = torch.zeros_like(table.key_hi)
+    key_hi = _pack_rows(torch.where(keep, table.key_hi, zero), keep2, 0)
+    key_lo = _pack_rows(torch.where(keep, table.key_lo, zero), keep2, 0)
+    lanes = {name: _pack_rows(lane, keep2, 0) for name, lane in lanes.items()}
+    fill = keep2.sum(1, dtype=torch.int32)
+    owner = torch.where(fill > 0, table.region_owner, -1)
+
+    # unlink emptied regions; close the hole so chains stay prefixes.
+    ent = table.chain_region
+    fill_at_ent = torch.where(ent_ok, fill[torch.clamp(ent, 0, R - 1).long()],
+                              0)
+    ent_keep = ent_ok & (fill_at_ent > 0)
+    chain_region = _pack_rows(ent, ent_keep, -1).reshape(ent.shape)
+
+    new = table._replace(key_hi=key_hi, key_lo=key_lo, lanes=lanes,
+                         chain_region=chain_region, region_fill=fill,
+                         region_owner=owner)
+    live_after = keep.sum(dtype=torch.int32)
+    return new, live_after, lanes[primary].sum(), live_before - live_after
+
+
+def region_prune_sweep(table: RegionTable, qstore: HashTable, now, *,
+                       cfg: DecayConfig,
+                       weight_lanes: Tuple[str, ...] = ("weight",),
+                       tick_lane: str = "last_tick"):
+    """:func:`prune_sweep` for the region layout (lazy policy): read-time
+    decay materialised per slot, prune, and the region maintenance of
+    :func:`_region_sweep`. Returns (table, live, total_weight,
+    reclaimed)."""
+    f = cfg.factor(torch.clamp_min(now - table.lanes[tick_lane], 0))
+    return _region_sweep(table, qstore, f, cfg, weight_lanes, now, tick_lane)
+
+
+def region_decay_sweep(table: RegionTable, qstore: HashTable, dticks, *,
+                       cfg: DecayConfig,
+                       weight_lanes: Tuple[str, ...] = ("weight",)):
+    """:func:`sweep_decay_prune` for the region layout (sweep policy):
+    scalar decay factor, same prune and region maintenance. Returns
+    (table, live, total_weight, reclaimed)."""
+    return _region_sweep(table, qstore, cfg.factor(dticks), cfg,
+                         weight_lanes, None, "last_tick")

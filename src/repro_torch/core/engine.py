@@ -1,4 +1,4 @@
-"""The search assistance engine (paper §4.2–§4.3), hash layout.
+"""The search assistance engine (paper §4.2–§4.3).
 
 Port of the JAX package's ``core/engine.py``. Per tick: the query path
 updates the query store, the sessions store and the cooccurrence store;
@@ -9,28 +9,32 @@ Differences from the JAX engine, all deliberate:
 
   * functions run eagerly on tensors of the engine's device; ``ingest_many``
     is a Python loop over ticks instead of a ``lax.scan``;
-  * on CUDA the decay sweep, the score/gate pass and the per-bucket top-k
-    always run their hand-written kernels, so ``EngineConfig`` has no
-    ``use_kernel``/``plan`` (the autotuning slice brings ``plan``);
-  * ``cooc_layout="region"`` raises until the region-layout slice.
+  * on CUDA every kernel site (the decay sweep, the score/gate pass, the
+    per-bucket top-k, and under the region layout the chain find and the
+    fused region pass) always runs its hand-written kernel, so
+    ``EngineConfig`` has no ``use_kernel``/``plan`` (the autotuning slice
+    brings ``plan``).
 
 ``state_arrays()``/``load_state_arrays()`` produce and accept exactly the
-JAX engine's dict (``leaf_0 .. leaf_25`` in ``jax.tree.flatten`` order,
-JAX dtypes), which is how JAX state becomes port state and back.
+JAX engine's dict (``leaf_0 .. leaf_25`` under the hash layout,
+``leaf_0 .. leaf_26`` under the region layout, in ``jax.tree.flatten``
+order, JAX dtypes), which is how JAX state becomes port state and back.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import ranking, stores
-from .decay import DecayConfig, prune_sweep, sweep_decay_prune
+from .decay import (DecayConfig, prune_sweep, region_decay_sweep,
+                    region_prune_sweep, sweep_decay_prune)
 from .hashing import combine_fp_device, from_np_u32, split_fp, to_np_u32
+from .plan import default_region_width
 from .ranking import RankConfig
-from .stores import U32, HashTable, SessionTable
+from .stores import U32, HashTable, RegionTable, SessionTable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,16 +62,17 @@ class EngineConfig:
     # quantum-sized slices (semantic: the cut points decide the result).
     # 0 disables slicing.
     ingest_quantum: int = 4096
-    # cooccurrence-store layout; only "hash" is ported so far.
+    # cooccurrence-store layout: "hash" = open addressing keyed by the pair
+    # fingerprint; "region" = source-major regions chained through a
+    # directory indexed by qstore slot (stores.RegionTable).
     cooc_layout: str = "hash"
+    # pairs per region; None derives it from cooc_capacity
+    # (plan.default_region_width; read it through ``region_w``).
     region_width: Optional[int] = None
-    region_chain: int = 8
+    region_chain: int = 8              # max spill-chain regions per source
 
     def __post_init__(self):
-        if self.cooc_layout == "region":
-            raise NotImplementedError(
-                "cooc_layout='region' is not ported yet")
-        if self.cooc_layout != "hash":
+        if self.cooc_layout not in ("hash", "region"):
             raise ValueError(f"unknown cooc_layout {self.cooc_layout!r} "
                              f"(expected 'hash' or 'region')")
 
@@ -75,10 +80,21 @@ class EngineConfig:
     def lazy_decay(self) -> bool:
         return self.decay.policy == "lazy"
 
+    @property
+    def region_cooc(self) -> bool:
+        return self.cooc_layout == "region"
+
+    @property
+    def region_w(self) -> int:
+        """Effective region width (explicit, or derived from capacity)."""
+        if self.region_width is not None:
+            return self.region_width
+        return default_region_width(self.cooc_capacity)
+
 
 class EngineState(NamedTuple):
     qstore: HashTable
-    cooc: HashTable
+    cooc: Union[HashTable, RegionTable]
     sessions: SessionTable
     tick: torch.Tensor  # i32[]
 
@@ -90,9 +106,13 @@ _COOC_LANES = {"weight": torch.float32, "count": torch.float32,
                "dst_hi": U32, "dst_lo": U32}
 
 
-def make_cooc_store(cfg: EngineConfig, device="cuda") -> HashTable:
-    """The hash-layout cooccurrence store (on CUDA unless ``device`` names
-    another device; raises where CUDA is absent)."""
+def make_cooc_store(cfg: EngineConfig, device="cuda"):
+    """The cooccurrence store under ``cfg.cooc_layout`` (on CUDA unless
+    ``device`` names another device; raises where CUDA is absent)."""
+    if cfg.region_cooc:
+        return stores.make_region_table(
+            cfg.cooc_capacity, cfg.region_w, cfg.query_capacity,
+            cfg.region_chain, _QSTORE_LANES, device)
     return stores.make_table(cfg.cooc_capacity, _COOC_LANES, device)
 
 
@@ -125,22 +145,28 @@ def _lazy_kw(state: EngineState, cfg: EngineConfig) -> dict:
     return dict(decay_cfg=cfg.decay, now=state.tick) if cfg.lazy_decay else {}
 
 
-def cooc_insert_pairs(cooc: HashTable, src_hi, src_lo, dst_hi, dst_lo,
-                      w_pair, valid, tick, cfg: EngineConfig, dkw):
-    """One micro-batch of (src -> dst) pair updates into the hash-layout
-    cooc store, keyed by the combined pair fingerprint."""
+def cooc_insert_pairs(cooc, qstore: HashTable, src_hi, src_lo, dst_hi,
+                      dst_lo, w_pair, valid, tick, cfg: EngineConfig, dkw):
+    """Layout dispatch for one micro-batch of (src -> dst) pair updates,
+    shared by the query path and the tweet path. The hash layout keys them
+    by the combined pair fingerprint; the region layout by the source's
+    slot in ``qstore`` and the dst fingerprint."""
     P = src_hi.shape[0]
     dev = src_hi.device
+    upd = {"weight": w_pair,
+           "count": torch.ones((P,), dtype=torch.float32, device=dev),
+           "last_tick": torch.as_tensor(tick, dtype=torch.int32,
+                                        device=dev).expand(P)}
+    if cfg.region_cooc:
+        return stores.region_insert_accumulate(
+            cooc, qstore, src_hi, src_lo, dst_hi, dst_lo, upd, valid,
+            modes=_Q_MODES, probe_rounds=cfg.probe_rounds, **dkw)
     p_hi, p_lo = combine_fp_device(src_hi, src_lo, dst_hi, dst_lo)
+    upd.update({"src_hi": src_hi, "src_lo": src_lo,
+                "dst_hi": dst_hi, "dst_lo": dst_lo})
     return stores.insert_accumulate(
-        cooc, p_hi, p_lo,
-        {"weight": w_pair,
-         "count": torch.ones((P,), dtype=torch.float32, device=dev),
-         "last_tick": torch.as_tensor(tick, dtype=torch.int32,
-                                      device=dev).expand(P),
-         "src_hi": src_hi, "src_lo": src_lo,
-         "dst_hi": dst_hi, "dst_lo": dst_lo},
-        valid, modes=_C_MODES, probe_rounds=cfg.probe_rounds, **dkw)
+        cooc, p_hi, p_lo, upd, valid, modes=_C_MODES,
+        probe_rounds=cfg.probe_rounds, **dkw)
 
 
 def ingest_queries(state: EngineState, sess_hi, sess_lo, q_hi, q_lo, src,
@@ -161,7 +187,7 @@ def ingest_queries(state: EngineState, sess_hi, sess_lo, q_hi, q_lo, src,
     # pair weight: geometric mean of the two interaction-source weights
     w_pair = torch.sqrt(_source_weights(cfg, pairs.src_code)
                         * _source_weights(cfg, pairs.dst_code))
-    cooc = cooc_insert_pairs(state.cooc, pairs.src_hi, pairs.src_lo,
+    cooc = cooc_insert_pairs(state.cooc, qstore, pairs.src_hi, pairs.src_lo,
                              pairs.dst_hi, pairs.dst_lo, w_pair, pairs.valid,
                              state.tick, cfg, dkw)
     return EngineState(qstore, cooc, sessions, state.tick)
@@ -205,7 +231,7 @@ def ingest_tweets(state: EngineState, g_hi, g_lo, valid, *,
     ok = ok & ~((src_hi == dst_hi) & (src_lo == dst_lo))
     P = src_hi.shape[0]
     cooc = cooc_insert_pairs(
-        state.cooc, src_hi, src_lo, dst_hi, dst_lo,
+        state.cooc, qstore, src_hi, src_lo, dst_hi, dst_lo,
         torch.full((P,), cfg.tweet_weight, dtype=torch.float32, device=dev),
         ok, state.tick, cfg, dkw)
     return EngineState(qstore, cooc, state.sessions, state.tick)
@@ -217,12 +243,20 @@ def decay_cycle(state: EngineState, dticks, *, cfg: EngineConfig
     weights, prune small entries and stale sessions."""
     qstore, q_live, q_tot = sweep_decay_prune(
         state.qstore, dticks, cfg=cfg.decay, weight_lanes=("weight",))
-    cooc, c_live, c_tot = sweep_decay_prune(
-        state.cooc, dticks, cfg=cfg.decay, weight_lanes=("weight",))
+    stats = {"q_live": q_live, "q_total_w": q_tot}
+    if cfg.region_cooc:
+        # region maintenance validates chains against the swept qstore, so
+        # chains of just-pruned sources free at once.
+        cooc, c_live, c_tot, c_rec = region_decay_sweep(
+            state.cooc, qstore, dticks, cfg=cfg.decay)
+        stats["c_reclaimed"] = c_rec
+        stats["c_free_regions"] = cooc.free_regions()
+    else:
+        cooc, c_live, c_tot = sweep_decay_prune(
+            state.cooc, dticks, cfg=cfg.decay, weight_lanes=("weight",))
     sessions = stores.evict_sessions(state.sessions, state.tick,
                                      cfg.session_ttl)
-    stats = {"q_live": q_live, "q_total_w": q_tot,
-             "c_live": c_live, "c_total_w": c_tot}
+    stats.update({"c_live": c_live, "c_total_w": c_tot})
     return EngineState(qstore, cooc, sessions, state.tick), stats
 
 
@@ -239,13 +273,19 @@ def prune_cycle(state: EngineState, *, cfg: EngineConfig
     stores plus session eviction, every ``prune_every`` ticks."""
     qstore, q_live, q_tot, q_rec = prune_sweep(state.qstore, state.tick,
                                                cfg=cfg.decay)
-    cooc, c_live, c_tot, c_rec = prune_sweep(state.cooc, state.tick,
-                                             cfg=cfg.decay)
+    if cfg.region_cooc:
+        cooc, c_live, c_tot, c_rec = region_prune_sweep(
+            state.cooc, qstore, state.tick, cfg=cfg.decay)
+    else:
+        cooc, c_live, c_tot, c_rec = prune_sweep(state.cooc, state.tick,
+                                                 cfg=cfg.decay)
     sessions = stores.evict_sessions(state.sessions, state.tick,
                                      cfg.session_ttl)
     stats = {"q_live": q_live, "q_total_w": q_tot,
              "c_live": c_live, "c_total_w": c_tot,
              "q_reclaimed": q_rec, "c_reclaimed": c_rec}
+    if cfg.region_cooc:
+        stats["c_free_regions"] = cooc.free_regions()
     return EngineState(qstore, cooc, sessions, state.tick), stats
 
 
@@ -341,6 +381,10 @@ def _flat_leaves(state: EngineState) -> List[Tuple[torch.Tensor, bool]]:
     for t in (state.qstore, state.cooc):
         out += [(t.key_hi, True), (t.key_lo, True)]
         out += [(t.lanes[n], n in stores.U32_LANES) for n in sorted(t.lanes)]
+        if isinstance(t, RegionTable):
+            out += [(t.chain_region, False), (t.chain_hi, True),
+                    (t.chain_lo, True), (t.region_fill, False),
+                    (t.region_owner, False)]
         out.append((t.n_dropped, False))
     s = state.sessions
     out += [(s.key_hi, True), (s.key_lo, True), (s.ring_hi, True),
@@ -353,9 +397,11 @@ def _flat_leaves(state: EngineState) -> List[Tuple[torch.Tensor, bool]]:
 def _unflatten(state: EngineState, leaves: List[torch.Tensor]) -> EngineState:
     it = iter(leaves)
 
-    def table(t: HashTable) -> HashTable:
+    def table(t):
         kh, kl = next(it), next(it)
         lanes = {n: next(it) for n in sorted(t.lanes)}
+        if isinstance(t, RegionTable):
+            return RegionTable(kh, kl, lanes, *(next(it) for _ in range(6)))
         return HashTable(kh, kl, lanes, next(it))
 
     q, c = table(state.qstore), table(state.cooc)
@@ -432,8 +478,10 @@ class SearchAssistanceEngine:
     def run_rank_cycle(self) -> Dict:
         dkw = (dict(decay_cfg=self.cfg.decay, now=self.state.tick)
                if self.cfg.lazy_decay else {})
-        table = ranking.ranking_cycle(self.state.cooc, self.state.qstore,
-                                      self.cfg.rank, **dkw)
+        cycle = (ranking.ranking_cycle_region if self.cfg.region_cooc
+                 else ranking.ranking_cycle)
+        table = cycle(self.state.cooc, self.state.qstore, self.cfg.rank,
+                      **dkw)
         self.suggestions = ranking.suggestions_to_host(table)
         self.last_rank_tick = int(self.state.tick)
         self.n_rank_cycles += 1

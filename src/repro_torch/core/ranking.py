@@ -1,7 +1,8 @@
 """Association scoring + ranking cycles (paper §2.4, §4.3 "Ranking cycles").
 
-Port of the hash half of the JAX package's ``core/ranking.py``: the
-segmented top-k cycle :func:`ranking_cycle`. Stages:
+Port of the JAX package's ``core/ranking.py``: the segmented top-k cycle
+:func:`ranking_cycle` over the hash layout, and :func:`ranking_cycle_region`
+over the region layout. Stages of the segmented cycle:
 
   1. score and gate every cooc slot against the query-store marginals —
      the ``score_gate`` kernel on CUDA (``kernels/ops``);
@@ -26,7 +27,7 @@ from ..kernels import ops as kops
 from . import stores
 from .decay import lazy_decayed
 from .hashing import MASK32, join_fp, to_np_u32
-from .stores import HashTable
+from .stores import HashTable, RegionTable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,6 +209,102 @@ def ranking_cycle(cooc: HashTable, qstore: HashTable, cfg: RankConfig, *,
                     ).sum(dtype=torch.int32)
     return SuggestionTable(out_src_hi, out_src_lo, out_dst_hi, out_dst_lo,
                            out_score, n_rows, arena_spill + select_spill)
+
+
+def ranking_cycle_region(cooc: RegionTable, qstore: HashTable,
+                         cfg: RankConfig, *, decay_cfg=None,
+                         now=None) -> SuggestionTable:
+    """One full ranking cycle over the source-major region layout.
+
+    The bucket grid is the store itself viewed as ``[n_regions, width]``:
+    no sort, no compaction. Source marginals are read by direct index
+    (region id = qstore slot), destination marginals by one qstore lookup
+    over the key lanes. The ``region_rank`` kernel scores, gates and takes
+    each region's top ``min(K, W)``; ``bucket_topk`` then merges each
+    source's ``max_chain * K1`` chain candidates into its top K. Ties:
+    within a region the lower slot (insertion order) wins, across a chain
+    the earlier region. ``n_overflow`` counts gate-passing pairs of sources
+    beyond ``cfg.max_sources`` (none at the default cap).
+    """
+    R, W, MC = cooc.n_regions, cooc.width, cooc.max_chain
+    Q = cooc.dir_slots
+    K = cfg.top_k
+    if Q != qstore.capacity:
+        raise ValueError("the directory must be indexed by qstore slot")
+    dev = cooc.key_hi.device
+
+    # dst marginals: the key lanes are the destination fingerprints.
+    dkw = dict(decay_cfg=decay_cfg, now=now) if decay_cfg is not None else {}
+    dst_vals, dst_found, _ = stores.lookup(qstore, cooc.key_hi, cooc.key_lo,
+                                           **dkw)
+    if decay_cfg is not None:
+        total_w = lazy_decayed(decay_cfg, qstore.lanes["weight"],
+                               qstore.lanes["last_tick"], now).sum()
+    else:
+        total_w = qstore.lanes["weight"].sum()
+    total_c = qstore.lanes["count"].sum()
+
+    # src marginals: one direct index per region.
+    row_valid, ent_ok, referenced = stores.region_chain_state(cooc, qstore)
+    ent = cooc.chain_region
+    o = torch.clamp(cooc.region_owner, 0, Q - 1).long()
+    w_a = qstore.lanes["weight"][o]
+    c_a = qstore.lanes["count"][o]
+    if decay_cfg is not None:
+        w_a = lazy_decayed(decay_cfg, w_a, qstore.lanes["last_tick"][o], now)
+
+    # [R, W] grid scoring and per-region selection. A region holds at most
+    # W pairs, so it yields min(K, W) winners; the merge restores K.
+    shape = (R, W)
+    base_ok = ((cooc.live_mask & dst_found).view(shape)
+               & referenced[:, None])
+    K1 = min(K, W)
+    vals, args, npass_r = kops.region_rank(
+        cooc.lanes["weight"].view(shape), cooc.lanes["count"].view(shape),
+        w_a, dst_vals["weight"].view(shape), c_a,
+        dst_vals["count"].view(shape), base_ok, total_w, total_c, k=K1,
+        coefs=cfg.coefs, min_pair_weight=cfg.min_pair_weight,
+        min_src_weight=cfg.min_src_weight,
+        min_pair_count=cfg.min_pair_count, decay_cfg=decay_cfg,
+        last_tick=cooc.lanes["last_tick"].view(shape), now=now)
+
+    # per-source chain merge: top-K over max_chain * K1 candidates.
+    S = min(Q, R, max(cfg.source_cap(Q), 1))
+    posq = torch.cumsum(row_valid, 0) - 1
+    slot_of_row = torch.full((S,), Q, dtype=torch.int64, device=dev)
+    act = (row_valid & (posq < S)).nonzero().squeeze(1)
+    slot_of_row[posq[act]] = act
+    has_slot = slot_of_row < Q
+    slot_safe = torch.where(has_slot, slot_of_row, 0)
+    ch = torch.where(has_slot[:, None], ent[slot_safe], -1).long()
+    cand = torch.where((ch >= 0)[:, :, None], vals[torch.clamp(ch, 0, R - 1)],
+                       -torch.inf).reshape(S, MC * K1)
+    if MC * K1 < K:   # K exceeds the whole chain's candidate pool
+        cand = torch.cat([cand, cand.new_full((S, K - MC * K1), -torch.inf)],
+                         1)
+    fvals, fidx = kops.bucket_topk(cand.contiguous(), K)
+    fidx = fidx.long()
+    depth = torch.clamp_max(torch.div(fidx, K1, rounding_mode="floor"),
+                            MC - 1)
+    reg_w = torch.clamp(torch.gather(ch, 1, depth), 0, R - 1)
+    col = args[reg_w, torch.remainder(fidx, K1)].long()
+    gslot = reg_w * W + torch.clamp(col, 0, W - 1)
+    good = fvals > -torch.inf
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    out_dst_hi = torch.where(good, cooc.key_hi[gslot], zero)
+    out_dst_lo = torch.where(good, cooc.key_lo[gslot], zero)
+    out_score = torch.where(good, fvals, torch.zeros_like(fvals))
+    has_out = good.any(1)
+    out_src_hi = torch.where(has_out, cooc.chain_hi[slot_safe], zero)
+    out_src_lo = torch.where(has_out, cooc.chain_lo[slot_safe], zero)
+
+    npass_row = torch.where(ent_ok, npass_r[torch.clamp(ent, 0, R - 1).long()],
+                            0).sum(1)
+    n_overflow = torch.where(row_valid & (posq >= S), npass_row,
+                             0).sum(dtype=torch.int32)
+    return SuggestionTable(out_src_hi, out_src_lo, out_dst_hi, out_dst_lo,
+                           out_score, has_out.sum(dtype=torch.int32),
+                           n_overflow)
 
 
 def suggestions_to_host(table: SuggestionTable) -> dict:

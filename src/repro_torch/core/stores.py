@@ -1,9 +1,10 @@
-"""In-memory statistics stores as fixed-capacity, dense-tensor hash tables.
+"""In-memory statistics stores as fixed-capacity, dense-tensor tables.
 
-Port of the hash half of the JAX package's ``core/stores.py``: the query
-statistics store and the hash-layout cooccurrence store (open addressing
-over (hi, lo) u32 fingerprint pairs) and the sessions store (per-session
-sliding-window rings). Slot placement is the JAX package's, exactly:
+Port of the JAX package's ``core/stores.py``: the query statistics store
+and the hash-layout cooccurrence store (open addressing over (hi, lo) u32
+fingerprint pairs), the sessions store (per-session sliding-window rings)
+and the source-major region layout of the cooccurrence store
+(:class:`RegionTable`). Slot placement is the JAX package's, exactly:
 
   * a batch is deduplicated with a stable sort on the unsigned (hi, lo)
     key, so each unique key's representative sits at the same batch
@@ -30,7 +31,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .hashing import probe_hash, to_np_u32, u32
+from ..kernels import ops as kops
+from .hashing import combine_fp_device, probe_hash, to_np_u32, u32
 
 # Lane reduction modes.
 ADD = "add"    # accumulate (weights, counts)
@@ -512,3 +514,305 @@ def evict_sessions(table: SessionTable, tick, ttl: int) -> SessionTable:
         cursor=torch.where(keep, table.cursor, z),
         filled=torch.where(keep, table.filled, z),
     )
+
+
+# ---------------------------------------------------------------------------
+# Source-major region layout for the cooccurrence store.
+#
+# Regions of ``width`` slots are pool-allocated to sources and chained
+# through a directory indexed by the source's qstore slot. A slot's key is
+# the destination fingerprint only: the region implies the source, so the
+# hash layout's four endpoint lanes are gone (5 lanes per pair, not 9).
+# Invariants: live slots of a region are its packed prefix [0, fill);
+# chains are -1-terminated prefixes of regions owned by their slot; a free
+# region (owner -1) is empty.
+# ---------------------------------------------------------------------------
+
+class RegionTable(NamedTuple):
+    """Source-major cooccurrence store (see the section comment)."""
+    key_hi: torch.Tensor        # i32 view of u32[C]: dst fp; (0,0) == empty
+    key_lo: torch.Tensor
+    lanes: Dict[str, torch.Tensor]  # each [C] (1-D only)
+    chain_region: torch.Tensor  # i32[Q, MC]: region ids, -1 = none (prefix)
+    chain_hi: torch.Tensor      # i32 view of u32[Q]: source fp owning slot q
+    chain_lo: torch.Tensor
+    region_fill: torch.Tensor   # i32[R]: live pairs, packed at [0, fill)
+    region_owner: torch.Tensor  # i32[R]: owning qstore slot, -1 = free
+    n_dropped: torch.Tensor     # i32[]: src-missing / chain-full / pool-empty
+
+    @property
+    def capacity(self) -> int:
+        return self.key_hi.shape[0]
+
+    @property
+    def n_regions(self) -> int:
+        return self.region_fill.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.capacity // self.n_regions
+
+    @property
+    def max_chain(self) -> int:
+        return self.chain_region.shape[1]
+
+    @property
+    def dir_slots(self) -> int:
+        return self.chain_region.shape[0]
+
+    @property
+    def live_mask(self) -> torch.Tensor:
+        return (self.key_hi != 0) | (self.key_lo != 0)
+
+    def live_count(self) -> torch.Tensor:
+        return self.live_mask.sum(dtype=torch.int32)
+
+    def free_regions(self) -> torch.Tensor:
+        """Freelist pressure: regions available for allocation."""
+        return (self.region_owner < 0).sum(dtype=torch.int32)
+
+
+def make_region_table(capacity: int, region_width: int, dir_slots: int,
+                      max_chain: int, lane_specs: Dict[str, Any],
+                      device="cuda") -> RegionTable:
+    """``dir_slots`` must equal the qstore capacity (region id = qstore
+    slot); ``capacity = n_regions * region_width``. On CUDA unless
+    ``device`` names another device; raises where CUDA is absent."""
+    if capacity <= 0 or capacity & (capacity - 1):
+        raise ValueError("capacity must be a power of two")
+    if region_width <= 0 or region_width & (region_width - 1) \
+            or capacity < region_width:
+        raise ValueError("region_width must be a power of two <= capacity")
+    if max_chain < 1:
+        raise ValueError("max_chain must be at least 1")
+    device = resolve_device(device)
+    n_regions = capacity // region_width
+    i32 = dict(dtype=torch.int32, device=device)
+    lanes = {name: torch.zeros((capacity,), dtype=_lane_dtype(spec),
+                               device=device)
+             for name, spec in lane_specs.items()}
+    return RegionTable(
+        key_hi=torch.zeros((capacity,), **i32),
+        key_lo=torch.zeros((capacity,), **i32),
+        lanes=lanes,
+        chain_region=torch.full((dir_slots, max_chain), -1, **i32),
+        chain_hi=torch.zeros((dir_slots,), **i32),
+        chain_lo=torch.zeros((dir_slots,), **i32),
+        region_fill=torch.zeros((n_regions,), **i32),
+        region_owner=torch.full((n_regions,), -1, **i32),
+        n_dropped=torch.zeros((), **i32))
+
+
+def region_chain_state(table: RegionTable, qstore: HashTable
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chain-validity rule shared by ranking and the sweeps: a
+    directory row is live iff it has a chain head and its recorded
+    fingerprint still owns that qstore slot. Returns
+
+      * ``row_valid`` bool[Q]: directory rows with a live, owned chain,
+      * ``ent_ok`` bool[Q, MC]: live chain entries,
+      * ``referenced`` bool[R]: regions reachable from a live chain.
+    """
+    if table.dir_slots != qstore.capacity:
+        raise ValueError("the directory must be indexed by qstore slot")
+    row_valid = ((table.chain_region[:, 0] >= 0)
+                 & (qstore.key_hi == table.chain_hi)
+                 & (qstore.key_lo == table.chain_lo)
+                 & qstore.live_mask)
+    ent_ok = (table.chain_region >= 0) & row_valid[:, None]
+    referenced = torch.zeros((table.n_regions,), dtype=torch.bool,
+                             device=row_valid.device)
+    referenced[table.chain_region[ent_ok].long()] = True
+    return row_valid, ent_ok, referenced
+
+
+def _group_ranks(slot: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Rank (0-based) of each masked row within its slot group, in row
+    order; unmasked rows get garbage ranks (callers mask).
+
+    One int64 key ``(slot << 32) | idx`` sorts masked rows by slot, then
+    by row index. The JAX version packs a u32 key when it fits 31 bits and
+    lexsorts (idx, slot) otherwise; both orders are this one, so the ranks
+    are the same in both of its cases.
+    """
+    B = slot.shape[0]
+    idx = torch.arange(B, device=slot.device)
+    packed = torch.where(mask, (slot << 32) | idx,
+                         torch.full_like(idx, 1 << 62))
+    po, order = torch.sort(packed, stable=True)
+    pslot = po >> 32
+    is_new = torch.ones_like(mask)
+    is_new[1:] = pslot[1:] != pslot[:-1]
+    rank_sorted = idx - torch.cummax(torch.where(is_new, idx, 0), 0).values
+    rank = torch.empty_like(idx)
+    rank[order] = rank_sorted
+    return rank
+
+
+def _region_chains(table: RegionTable, qstore: HashTable, src_hi, src_lo,
+                   active, probe_rounds: int):
+    """Each pair's source slot and chain: (active & source in the qstore,
+    its slot i64 (0 where absent), chain_ok (the slot holds a chain
+    stamped with this source), regs i32[B, MC] with -1 where not)."""
+    _, src_found, qslot = lookup(qstore, src_hi, src_lo,
+                                 probe_rounds=probe_rounds)
+    active = active & src_found
+    qslot = torch.where(active, qslot, 0)
+    chain_ok = (active & (table.chain_region[qslot, 0] >= 0)
+                & (table.chain_hi[qslot] == src_hi)
+                & (table.chain_lo[qslot] == src_lo))
+    regs = torch.where(chain_ok[:, None], table.chain_region[qslot], -1)
+    return active, qslot, chain_ok, regs
+
+
+def _chain_find(table: RegionTable, regs, dst_hi, dst_lo, active
+                ) -> torch.Tensor:
+    """Global slot of each pair's dst key along its chain, or -1 (i64);
+    the ``chain_find`` kernel on CUDA."""
+    R, W = table.n_regions, table.width
+    return kops.chain_find(table.key_hi.view(R, W), table.key_lo.view(R, W),
+                           regs, dst_hi, dst_lo, active).long()
+
+
+def region_insert_accumulate(table: RegionTable, qstore: HashTable,
+                             src_hi, src_lo, dst_hi, dst_lo,
+                             updates: Dict[str, torch.Tensor], valid, *,
+                             modes: Tuple[Tuple[str, str], ...],
+                             probe_rounds: int = 16, decay_cfg=None,
+                             decay_lanes: Tuple[str, ...] = ("weight",),
+                             tick_lane: str = "last_tick",
+                             now=None) -> RegionTable:
+    """Batched insert-or-accumulate of (src -> dst) pairs, region layout,
+    in place.
+
+    The source's qstore slot names its chain: finds scan the chain's
+    region rows, claims append at each region's fill tail in chain order,
+    and new regions come off the freelist in ascending-id order.
+    Accumulation (dedup by the combined pair fingerprint, ADD/SET lanes,
+    lazy rebase-on-write) is :func:`insert_accumulate`'s. Drops (source
+    absent from the qstore, chain full, pool empty) count in
+    ``n_dropped``.
+    """
+    R, W, MC = table.n_regions, table.width, table.max_chain
+    mode_map = dict(modes)
+    dev = src_hi.device
+
+    # dedup by the combined pair fp; src/dst ride along as SET lanes so
+    # the representatives carry them.
+    p_hi, p_lo = combine_fp_device(src_hi, src_lo, dst_hi, dst_lo)
+    ends = {"_src_hi": src_hi, "_src_lo": src_lo,
+            "_dst_hi": dst_hi, "_dst_lo": dst_lo}
+    _, _, agg, alive = _dedup_and_aggregate(
+        p_hi, p_lo, {**updates, **ends}, valid,
+        {**mode_map, **{n: SET for n in ends}})
+    a_src_hi, a_src_lo = agg.pop("_src_hi"), agg.pop("_src_lo")
+    a_dst_hi, a_dst_lo = agg.pop("_dst_hi"), agg.pop("_dst_lo")
+
+    alive2, qslot, chain_ok, regs = _region_chains(
+        table, qstore, a_src_hi, a_src_lo, alive, probe_rounds)
+    n_src_miss = (alive & ~alive2).sum(dtype=torch.int32)
+    found = _chain_find(table, regs, a_dst_hi, a_dst_lo, alive2)
+
+    # claim: rank new pairs within their source and map the ranks onto
+    # the chain's free tail space (earlier regions' tails fill first).
+    new = alive2 & (found < 0)
+    rank = _group_ranks(qslot, new)
+    f_d = torch.where(regs >= 0,
+                      table.region_fill[torch.clamp(regs, 0, R - 1).long()],
+                      0).long()
+    avail = W - f_d                       # an unallocated depth has W free
+    cumavail = torch.cumsum(avail, 1)
+    prev_cum = cumavail - avail
+    in_d = new[:, None] & (rank[:, None] >= prev_cum) \
+        & (rank[:, None] < cumavail)
+    d_star = torch.argmax(in_d.to(torch.uint8), 1)   # first True depth
+    has_room = in_d.any(1)
+
+    def take1(a):
+        return torch.gather(a, 1, d_star[:, None])[:, 0]
+
+    pos = rank - take1(prev_cum) + take1(f_d)
+    reg_at = take1(regs).long()
+    n_chain_full = (new & ~has_room).sum(dtype=torch.int32)
+
+    # allocation: one representative per needed (slot, depth), given free
+    # regions in ascending region-id order of (slot, depth).
+    rep = new & has_room & (reg_at < 0) & (pos == 0)
+    big = torch.iinfo(torch.int64).max
+    okey = torch.where(rep, qslot * MC + d_star, big)
+    order = torch.sort(okey, stable=True).indices
+    t = torch.empty_like(okey)
+    t[order] = torch.where(okey[order] < big,
+                           torch.arange(okey.shape[0], device=dev),
+                           okey.shape[0])
+    free_ids = (table.region_owner < 0).nonzero().squeeze(1)
+    n_free = free_ids.shape[0]
+    got = rep & (t < n_free)
+    alloc_region = torch.full_like(okey, -1)
+    alloc_region[got] = free_ids[t[got]]
+
+    # directory writes: stale or new rows reset wholesale (the previous
+    # owner's chain is orphaned; a sweep reclaims it), then the allocated
+    # entries land, then the owning fp is stamped.
+    cr = table.chain_region
+    reset = (new & ~chain_ok).nonzero().squeeze(1)
+    cr[qslot[reset]] = -1
+    table.chain_hi[qslot[reset]] = a_src_hi[reset]
+    table.chain_lo[qslot[reset]] = a_src_lo[reset]
+    ok_rep = got.nonzero().squeeze(1)
+    cr[qslot[ok_rep], d_star[ok_rep]] = alloc_region[ok_rep].to(torch.int32)
+    table.region_owner[alloc_region[ok_rep]] = qslot[ok_rep].to(torch.int32)
+
+    # final placement: re-read the directory, which covers freshly
+    # allocated regions and pool-exhaustion failures in one gather.
+    reg_final = torch.where(reg_at >= 0, reg_at, cr[qslot, d_star].long())
+    placed_new = new & has_room & (reg_final >= 0)
+    n_pool_full = (new & has_room & (reg_final < 0)).sum(dtype=torch.int32)
+    gslot = reg_final * W + pos
+    rows = placed_new.nonzero().squeeze(1)
+    table.key_hi[gslot[rows]] = a_dst_hi[rows]
+    table.key_lo[gslot[rows]] = a_dst_lo[rows]
+    table.region_fill.add_(torch.bincount(reg_final[rows], minlength=R)
+                           .to(torch.int32))
+
+    write_slot = torch.where(found >= 0, found,
+                             torch.where(placed_new, gslot, -1))
+    ok = alive2 & (write_slot >= 0)
+    rebase = None
+    if decay_cfg is not None:
+        safe = torch.where(ok, write_slot, 0)
+        f = decay_cfg.factor(torch.clamp_min(
+            now - table.lanes[tick_lane][safe], 0))
+        rebase = {name: table.lanes[name][safe] * f for name in decay_lanes
+                  if mode_map.get(name) == ADD}
+    lanes = _apply_lane_updates(table.lanes, agg, mode_map, ok, write_slot,
+                                rebase=rebase)
+    return table._replace(
+        lanes=lanes,
+        n_dropped=table.n_dropped + n_src_miss + n_chain_full + n_pool_full)
+
+
+def region_lookup(table: RegionTable, qstore: HashTable, src_hi, src_lo,
+                  dst_hi, dst_lo, *, probe_rounds: int = 16, decay_cfg=None,
+                  decay_lanes: Tuple[str, ...] = ("weight",),
+                  tick_lane: str = "last_tick", now=None):
+    """Batched pair lookup under the region layout, :func:`lookup`'s
+    contract (read-time decayed view under the lazy policy). Returns
+    (lanes_at_pair, found_mask, global slot i64 (-1))."""
+    nonzero = (src_hi != 0) | (src_lo != 0)
+    _, _, chain_ok, regs = _region_chains(table, qstore, src_hi, src_lo,
+                                          nonzero, probe_rounds)
+    found_slot = _chain_find(table, regs, dst_hi, dst_lo, chain_ok)
+    found = found_slot >= 0
+    safe = torch.where(found, found_slot, 0)
+    f = None
+    if decay_cfg is not None:
+        f = decay_cfg.factor(torch.clamp_min(
+            now - table.lanes[tick_lane][safe], 0))
+    out = {}
+    for name, lane in table.lanes.items():
+        v = lane[safe]
+        if f is not None and name in decay_lanes:
+            v = v * f
+        out[name] = torch.where(found, v, torch.zeros_like(v))
+    return out, found, found_slot

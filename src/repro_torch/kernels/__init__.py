@@ -19,13 +19,23 @@ Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches its
 kernel, and nowhere else, so a run can show that the main path went through
 the kernels.
 
-Kernel sites on the main path::
+Kernel sites::
 
-    call site                               wrapper                      kernel
-    --------------------------------------- ---------------------------- -------------------------
-    core/decay.sweep_decay_prune            ops.decay_prune_table        csrc/decay_prune.cu
-    core/ranking._score_and_gate            ops.score_gate               csrc/score_gate.cu
-    core/ranking.ranking_cycle (selection)  ops.bucket_topk              csrc/bucket_topk.cu
+    call site                                  wrapper                  kernel (csrc/)
+    ------------------------------------------ ------------------------ ----------------
+    core/decay.sweep_decay_prune               ops.decay_prune_table    decay_prune.cu
+    core/ranking._score_and_gate               ops.score_gate           score_gate.cu
+    core/ranking.ranking_cycle (selection)     ops.bucket_topk          bucket_topk.cu
+    core/stores.region_insert_accumulate,      ops.chain_find           chain_find.cu
+      core/stores.region_lookup
+    core/ranking.ranking_cycle_region (grid)   ops.region_rank          region_rank.cu
+    core/ranking.ranking_cycle_region (merge)  ops.bucket_topk          bucket_topk.cu
+    (no engine caller)                         assoc_score.assoc_score  assoc_score.cu
+
+The hash layout's path runs ``decay_prune_multi``, ``score_gate`` and
+``bucket_topk``; the region layout's runs ``decay_prune_multi`` (the
+qstore sweep), ``chain_find``, ``region_rank`` and ``bucket_topk``
+(:data:`PATH_KERNELS`).
 """
 from __future__ import annotations
 
@@ -33,7 +43,15 @@ from typing import Dict
 
 import torch
 
-KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk")
+KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk", "chain_find",
+           "region_rank", "assoc_score")
+
+# The kernels each cooc layout's main path launches.
+PATH_KERNELS = {
+    "hash": ("decay_prune_multi", "score_gate", "bucket_topk"),
+    "region": ("decay_prune_multi", "chain_find", "region_rank",
+               "bucket_topk"),
+}
 
 # Launch counts per kernel: incremented only where a wrapper launches its
 # CUDA kernel (never for the plain version on the CPU).

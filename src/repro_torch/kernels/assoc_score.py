@@ -1,18 +1,26 @@
-"""Association scoring body shared by the ranking kernels.
+"""Association scoring: the body shared by the ranking kernels, and the
+stand-alone ``assoc_score`` kernel.
 
-Port of the JAX package's ``kernels/assoc_score.py:score_body``. The plain
-torch function here is the body's CPU form and oracle; its device twin is
-``repro::score_body`` in ``csrc/assoc_score.cuh``, which the ``score_gate``
-kernel inlines. Both run the same operations in the same order.
+Port of the JAX package's ``kernels/assoc_score.py``. The plain torch
+:func:`score_body` is the body's CPU form and oracle; its device twin is
+``repro::score_body`` in ``csrc/assoc_score.cuh``, which the
+``score_gate`` and ``region_rank`` kernels inline. Both run the same
+operations in the same order.
 
-The JAX package's stand-alone ``assoc_score`` Pallas kernel has no engine
-caller and is not ported in this slice.
+:func:`assoc_score` is the JAX package's stand-alone Pallas kernel (the
+four scores and their combination over full lanes, no gates, no decay):
+``csrc/assoc_score.cu`` on CUDA tensors, :func:`score_body` on CPU tensors.
+Neither package's engine calls it.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
+
+from . import LAUNCHES, check_launch, route
+from .build import load
 
 _EPS = 1e-9
 
@@ -70,3 +78,42 @@ def score_body(w_ab, c_ab, w_a, w_b, c_a, c_b, total_w, total_c,
     """Combined association score per slot (no gates, no decay)."""
     return combine(coefs, *assoc_lanes(w_ab, c_ab, w_a, w_b, c_a, c_b,
                                        total_w, total_c))
+
+
+def _entry():
+    fn = load("assoc_score").repro_assoc_score
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 4
+                   + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
+    return fn
+
+
+def assoc_score(w_ab, c_ab, w_a, w_b, c_a, c_b, total_w, total_c, *,
+                coefs: Tuple[float, float, float, float]) -> torch.Tensor:
+    """Combined association score per slot over f32[C] lanes (no gates, no
+    decay); ``total_w``/``total_c`` are 0-d f32 tensors or numbers."""
+    lanes = (w_ab, c_ab, w_a, w_b, c_a, c_b)
+    dev = w_ab.device
+    totals = [torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+              for x in (total_w, total_c)]
+    if route(*lanes) == "plain":
+        return score_body(*lanes, *totals, coefs)
+    n = w_ab.shape[0]
+    for t in lanes:
+        if t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous():
+            raise ValueError("score lanes must be contiguous float32 [C]")
+    out = torch.empty_like(w_ab)
+    launch_assoc_score(lanes, torch.stack(totals), coefs, out)
+    return out
+
+
+def launch_assoc_score(lanes, totals, coefs, out) -> None:
+    """Launch the assoc_score kernel into ``out``, counting it. The bare
+    launch under :func:`assoc_score`, which checks the lanes and stacks
+    ``totals`` (f32[2]: total_w, total_c)."""
+    c0, c1, c2, c3 = (float(c) for c in coefs)
+    code = _entry()(*[t.data_ptr() for t in lanes], totals.data_ptr(),
+                    c0, c1, c2, c3, out.data_ptr(), out.shape[0],
+                    torch.cuda.current_stream(out.device).cuda_stream)
+    check_launch(code, "assoc_score")
+    LAUNCHES["assoc_score"] += 1

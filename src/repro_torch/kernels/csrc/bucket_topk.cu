@@ -1,32 +1,31 @@
 // Per-bucket top-k over the segmented ranking cycle's [R, L] grid, for Hopper.
 //
 // Replaces: src/repro/kernels/topk_select.py:bucket_topk, the Pallas TPU
-// kernel of the ranking cycle's selection stage (core/ranking.ranking_cycle).
+// kernel of the ranking cycle's selection stage (core/ranking.ranking_cycle)
+// and of the region ranking cycle's per-source chain merge
+// (core/ranking.ranking_cycle_region).
 //
 // What bounds it on an H100: bytes. The grid is read once (R * L * 4 B) and
 // K values and K columns are written per row (R * K * 8 B); the K rounds of
 // comparisons run on registers.
 //
-// Design: one warp per row. Lane l holds columns l and l + 32 in registers
-// (NPER = ceil(L / 32) values, a template constant so the array stays in
-// registers), loaded with coalesced 4-byte reads. Rows up to 64 wide are
-// instantiated: the engine's grid is max(bucket_rows, top_k) = 64 wide at
-// RankConfig's defaults. Each of the K
-// rounds is a local scan (strictly greater keeps the lowest column among a
-// lane's ties) followed by a five-step butterfly shuffle on (value, then
-// lowest column), so ties resolve to the lowest column exactly like
-// lax.top_k and the Pallas kernel's min-iota argmax. The owning lane retires
-// the winner with a compile-time-indexed write (no local-memory spill). A
-// round that finds only -inf is exhausted and emits -inf with the sentinel
-// column L.
+// Design: one warp per row. Lane l holds columns l, l + 32, ... in
+// registers (NPER = ceil(L / 32) values, a template constant so the array
+// stays in registers), loaded with coalesced 4-byte reads. Rows up to 128
+// wide are instantiated: the engine's grid is max(bucket_rows, top_k) = 64
+// wide at RankConfig's defaults, and the chain merge's max_chain * K1 = 64
+// at the deployment configuration. The K rounds of selection are
+// repro::warp_topk (warp_topk.cuh), shared with region_rank.
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <math.h>
 
+#include "warp_topk.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxWidth = 64;
+constexpr int kMaxWidth = 128;
 
 template <int NPER>
 __global__ void bucket_topk_kernel(const float* __restrict__ grid, int64_t rows,
@@ -42,34 +41,7 @@ __global__ void bucket_topk_kernel(const float* __restrict__ grid, int64_t rows,
     const int c = lane + 32 * j;
     v[j] = c < L ? g[c] : -INFINITY;
   }
-  for (int k = 0; k < K; ++k) {
-    float best = -INFINITY;
-    int col = L;
-#pragma unroll
-    for (int j = 0; j < NPER; ++j) {
-      if (v[j] > best) {
-        best = v[j];
-        col = lane + 32 * j;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oc = __shfl_xor_sync(0xffffffffu, col, off);
-      if (ov > best || (ov == best && oc < col)) {
-        best = ov;
-        col = oc;
-      }
-    }
-    if (lane == 0) {
-      vals[row * K + k] = best;
-      args[row * K + k] = col;
-    }
-#pragma unroll
-    for (int j = 0; j < NPER; ++j) {
-      if (lane + 32 * j == col) v[j] = -INFINITY;
-    }
-  }
+  repro::warp_topk<NPER>(v, lane, K, L, vals + row * K, args + row * K);
 }
 
 template <int NPER>
@@ -98,6 +70,7 @@ extern "C" int repro_bucket_topk(const void* grid, int64_t rows, int L, int K,
   int32_t* a = static_cast<int32_t*>(args);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L <= 32) launch<1>(g, rows, L, K, v, a, s);
-  else launch<2>(g, rows, L, K, v, a, s);
+  else if (L <= 64) launch<2>(g, rows, L, K, v, a, s);
+  else launch<4>(g, rows, L, K, v, a, s);
   return (int)cudaGetLastError();
 }

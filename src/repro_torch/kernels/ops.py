@@ -11,6 +11,7 @@ from typing import Tuple
 import torch
 
 from . import decay_prune as _dp
+from . import region_probe as _rp
 from . import topk_select as _tk
 
 
@@ -33,6 +34,16 @@ def decay_prune_table(table, dticks, *, cfg, weight_lanes: Tuple[str, ...]):
     return table._replace(key_hi=kh, key_lo=kl, lanes=lanes), live, tot
 
 
+def _pre_decay(w_ab, decay_cfg, last_tick, now):
+    """(w_ab, half_life): exponential decay runs in the kernel (half_life);
+    other kinds pre-decay ``w_ab`` with identical semantics."""
+    if decay_cfg is None:
+        return w_ab, None
+    if decay_cfg.kind == "exp":
+        return w_ab, float(decay_cfg.half_life_ticks)
+    return w_ab * decay_cfg.factor(torch.clamp_min(now - last_tick, 0)), None
+
+
 def score_gate(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c, *,
                coefs: Tuple[float, float, float, float],
                min_pair_weight: float, min_src_weight: float,
@@ -41,12 +52,7 @@ def score_gate(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c, *,
     """(Lazy decay +) scoring + gating: the elementwise stage of the
     segmented ranking cycle. Exponential decay runs in the kernel; other
     kinds pre-decay with identical semantics."""
-    half_life = None
-    if decay_cfg is not None:
-        if decay_cfg.kind == "exp":
-            half_life = float(decay_cfg.half_life_ticks)
-        else:
-            w_ab = w_ab * decay_cfg.factor(torch.clamp_min(now - last_tick, 0))
+    w_ab, half_life = _pre_decay(w_ab, decay_cfg, last_tick, now)
     return _tk.score_gate(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick,
                           total_w, total_c, now,
                           coefs=tuple(float(c) for c in coefs),
@@ -60,3 +66,28 @@ def bucket_topk(grid, k: int):
     """Per-bucket top-k over the segmented ranking [R, L] grid (values and
     in-bucket columns); the lowest column wins ties."""
     return _tk.bucket_topk(grid, int(k))
+
+
+def region_rank(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c, *,
+                k: int, coefs: Tuple[float, float, float, float],
+                min_pair_weight: float, min_src_weight: float,
+                min_pair_count: float, decay_cfg=None, last_tick=None,
+                now=None):
+    """The region ranking cycle's fused pass: (lazy decay +) scoring +
+    gates + per-region top-k over the ``[R, W]`` grid, with ``w_a``/``c_a``
+    one per region (f32[R]). Exponential decay runs in the kernel; other
+    kinds pre-decay with identical semantics. Returns (vals, args, npass)."""
+    w_ab, half_life = _pre_decay(w_ab, decay_cfg, last_tick, now)
+    return _tk.region_rank(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick,
+                           total_w, total_c, now, k=int(k),
+                           coefs=tuple(float(c) for c in coefs),
+                           min_pair_weight=float(min_pair_weight),
+                           min_src_weight=float(min_src_weight),
+                           min_pair_count=float(min_pair_count),
+                           half_life=half_life)
+
+
+def chain_find(key_hi_r, key_lo_r, regs, dst_hi, dst_lo, active):
+    """Region-layout chain find (the region store's insert and lookup):
+    the global slot of each pair's dst key along its chain, or -1."""
+    return _rp.chain_find(key_hi_r, key_lo_r, regs, dst_hi, dst_lo, active)

@@ -1,11 +1,12 @@
-"""Segmented-top-k ranking: the score/gate pass and the per-bucket top-k.
+"""Ranking kernels: the score/gate pass, the per-bucket top-k and the fused
+region pass.
 
-Port of the JAX package's ``kernels/topk_select.py`` (``score_gate`` and
-``bucket_topk``; ``region_rank`` belongs to the region-layout slice). On
-CUDA tensors the wrappers launch ``csrc/score_gate.cu`` and
-``csrc/bucket_topk.cu``; on CPU tensors they run the plain versions in
-``ref.py``. The kernels take any capacity and any row count, so the
-Pallas version's tile padding is gone.
+Port of the JAX package's ``kernels/topk_select.py`` (``score_gate``,
+``bucket_topk`` and ``region_rank``). On CUDA tensors the wrappers launch
+``csrc/score_gate.cu``, ``csrc/bucket_topk.cu`` and ``csrc/region_rank.cu``;
+on CPU tensors they run the plain versions in ``ref.py``. The kernels take
+any capacity and any row count, so the Pallas version's tile padding is
+gone.
 """
 from __future__ import annotations
 
@@ -38,11 +39,27 @@ def _bucket_topk_lib():
     return lib
 
 
-def _decay_exp2(w_ab, last_tick, now, half_life: float):
+def _region_rank_lib():
+    lib = load("region_rank")
+    lib.repro_region_rank.restype = ctypes.c_int
+    lib.repro_region_rank.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_float] * 8
+        + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 4)
+    lib.repro_region_rank_max_width.restype = ctypes.c_int
+    lib.repro_region_rank_max_width.argtypes = []
+    return lib
+
+
+def decay_exp2(w_ab, last_tick, now, half_life: float):
+    """``w_ab * exp2(-max(now - last_tick, 0) / half_life)``, the kernels'
+    in-pass read-time decay. The division is elementwise: on CUDA, torch
+    divides by a Python number as a multiply by its reciprocal, which can
+    round one ulp away from the kernels' (and the JAX kernels') quotient."""
     dt = torch.clamp_min(torch.as_tensor(now, dtype=torch.float32,
                                          device=w_ab.device)
                          - last_tick.to(torch.float32), 0.0)
-    return w_ab * torch.exp2(-dt / half_life)
+    return w_ab * torch.exp2(-dt / torch.full_like(dt, half_life))
 
 
 def score_gate(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick, total_w,
@@ -61,7 +78,7 @@ def score_gate(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick, total_w,
     lanes = (w_ab, c_ab, w_a, w_b, c_a, c_b)
     if route(*lanes, ok) == "plain":
         if half_life is not None:
-            w_ab = _decay_exp2(w_ab, last_tick, now, half_life)
+            w_ab = decay_exp2(w_ab, last_tick, now, half_life)
         return ref.score_gate_ref(w_ab, c_ab, w_a, w_b, c_a, c_b, ok,
                                   total_w, total_c, coefs, min_pair_weight,
                                   min_src_weight, min_pair_count)
@@ -113,8 +130,9 @@ def bucket_topk(grid: torch.Tensor, k: int
 
     Returns (vals f32[R, k], args i32[R, k]); rounds past a row's finite
     entries yield ``-inf`` and the sentinel column ``L``. The CUDA kernel
-    keeps a row in one warp's registers, so it raises for ``L`` above 64
-    (the engine's grid is ``max(bucket_rows, top_k)`` = 64 wide by default).
+    keeps a row in one warp's registers, so it raises for ``L`` above 128
+    (the engine's grid is ``max(bucket_rows, top_k)`` = 64 wide by default,
+    the region chain merge's ``max_chain * K1`` = 64).
     """
     if route(grid) == "plain":
         return ref.bucket_topk_ref(grid, k)
@@ -143,3 +161,87 @@ def launch_bucket_topk(grid, vals, args) -> None:
     check_launch(code, "bucket_topk")
     LAUNCHES["bucket_topk"] += 1
 
+
+
+def region_rank(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick, total_w,
+                total_c, now, *, k: int,
+                coefs: Tuple[float, float, float, float],
+                min_pair_weight: float, min_src_weight: float,
+                min_pair_count: float, half_life: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(Lazy decay +) scoring, gates and per-region top-k over the region
+    layout's grid.
+
+    ``w_ab``, ``c_ab``, ``w_b``, ``c_b`` are f32[R, W] and ``ok`` bool[R, W]
+    (a pure view of the store); ``w_a``, ``c_a`` f32[R] are each region's
+    source marginals; ``total_w``/``total_c`` 0-d f32 tensors.
+    ``half_life`` enables the exponential read-time decay of ``w_ab`` from
+    ``last_tick`` (i32[R, W]) to ``now``. Returns (vals f32[R, k], args
+    i32[R, k], npass i32[R]); ties go to the lowest column, exhausted
+    rounds give ``-inf`` and the sentinel column W. The CUDA kernel keeps a
+    region row in one warp's registers, so it raises for W above 128.
+    """
+    grid = (w_ab, c_ab, w_b, c_b)
+    if route(*grid, w_a, c_a, ok) == "plain":
+        if half_life is not None:
+            w_ab = decay_exp2(w_ab, last_tick, now, half_life)
+        return ref.region_rank_ref(w_ab, c_ab, w_a, w_b, c_a, c_b, ok,
+                                   total_w, total_c, k, coefs,
+                                   min_pair_weight, min_src_weight,
+                                   min_pair_count)
+    R, W = w_ab.shape
+    lib = _region_rank_lib()
+    if W > lib.repro_region_rank_max_width():
+        raise ValueError(f"region_rank: region width {W} exceeds the "
+                         f"kernel's {lib.repro_region_rank_max_width()}")
+    for t in grid:
+        if t.dtype != torch.float32 or t.shape != (R, W) \
+                or not t.is_contiguous():
+            raise ValueError("region lanes must be contiguous float32 [R, W]")
+    for t in (w_a, c_a):
+        if t.dtype != torch.float32 or t.shape != (R,) \
+                or not t.is_contiguous():
+            raise ValueError("source marginals must be contiguous "
+                             "float32 [R]")
+    if ok.dtype != torch.bool or ok.shape != (R, W) or not ok.is_contiguous():
+        raise ValueError("ok must be a contiguous bool [R, W]")
+    dev = w_ab.device
+    lt_ptr = None
+    if half_life is not None:
+        if (last_tick.dtype != torch.int32 or last_tick.shape != (R, W)
+                or not last_tick.is_contiguous() or last_tick.device != dev):
+            raise ValueError("last_tick must be a contiguous int32 [R, W] "
+                             "on the lanes' device")
+        lt_ptr = last_tick.data_ptr()
+    scalars = torch.stack([
+        torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+        for x in (total_w, total_c, 0 if now is None else now)])
+    vals = torch.empty((R, k), dtype=torch.float32, device=dev)
+    args = torch.empty((R, k), dtype=torch.int32, device=dev)
+    npass = torch.empty((R,), dtype=torch.int32, device=dev)
+    launch_region_rank((w_ab, c_ab, w_a, w_b, c_a, c_b), ok, lt_ptr, scalars,
+                       coefs, (min_pair_weight, min_src_weight,
+                               min_pair_count), half_life, vals, args, npass)
+    return vals, args, npass
+
+
+def launch_region_rank(lanes, ok, lt_ptr, scalars, coefs, gates, half_life,
+                       vals, args, npass) -> None:
+    """Launch the region_rank kernel into ``vals``/``args`` [R, k] and
+    ``npass`` [R], counting it.
+
+    The bare launch under :func:`region_rank`, which checks the lanes
+    (``w_ab, c_ab, w_a, w_b, c_a, c_b``) and stacks ``scalars`` (f32[3]:
+    total_w, total_c, now); ``lt_ptr`` is the ``last_tick`` lane's pointer,
+    or None without ``half_life``.
+    """
+    R, W = lanes[0].shape
+    c0, c1, c2, c3 = (float(c) for c in coefs)
+    code = _region_rank_lib().repro_region_rank(
+        *[t.data_ptr() for t in lanes], ok.data_ptr(), lt_ptr,
+        scalars.data_ptr(), c0, c1, c2, c3, *(float(g) for g in gates),
+        0.0 if half_life is None else float(half_life), R, W, vals.shape[1],
+        vals.data_ptr(), args.data_ptr(), npass.data_ptr(),
+        torch.cuda.current_stream(vals.device).cuda_stream)
+    check_launch(code, "region_rank")
+    LAUNCHES["region_rank"] += 1

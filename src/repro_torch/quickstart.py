@@ -3,6 +3,7 @@ synthetic query/tweet stream and print related-query suggestions.
 
   PYTHONPATH=src python -m repro_torch.quickstart              # on the GPU
   PYTHONPATH=src python -m repro_torch.quickstart --device cpu
+  PYTHONPATH=src python -m repro_torch.quickstart --layout region
 
 Port of the JAX package's ``examples/quickstart.py``: same stream, same
 engine configuration.
@@ -18,12 +19,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda)")
+    ap.add_argument("--layout", default="hash", choices=("hash", "region"),
+                    help="cooccurrence-store layout (default: hash)")
     args = ap.parse_args(argv)
     stream = SyntheticStream(StreamConfig(vocab_size=1024,
                                           queries_per_tick=1024,
                                           tweets_per_tick=64), seed=0)
     cfg = EngineConfig(query_capacity=1 << 14, cooc_capacity=1 << 16,
-                       session_capacity=1 << 13, decay_every=4, rank_every=8)
+                       session_capacity=1 << 13, decay_every=4, rank_every=8,
+                       cooc_layout=args.layout)
     engine = SearchAssistanceEngine(cfg, device=args.device)
 
     for t in range(17):

@@ -1,6 +1,6 @@
 """The PyTorch port on a CUDA card: each CUDA kernel against its plain
-version, the engine on the card against the engine on the CPU, and
-bit-identical state across two runs on the card.
+version, the engine on the card against the engine on the CPU under both
+cooc layouts, and bit-identical state across two runs on the card.
 
 Every test takes the ``cuda`` fixture, which skips it where there is no
 card (the CPU test run). This file imports neither JAX nor the JAX package,
@@ -16,8 +16,11 @@ from repro_torch.core.decay import DecayConfig
 from repro_torch.core.engine import EngineConfig, SearchAssistanceEngine
 from repro_torch.data.stream import StreamConfig, SyntheticStream
 from repro_torch.kernels import ref
+from repro_torch.kernels.assoc_score import assoc_score, score_body
 from repro_torch.kernels.decay_prune import decay_prune_multi
-from repro_torch.kernels.topk_select import bucket_topk, score_gate
+from repro_torch.kernels.region_probe import chain_find
+from repro_torch.kernels.topk_select import bucket_topk, decay_exp2, \
+    region_rank, score_gate
 
 COEFS = (1.0, 0.15, 0.02, 0.0)
 GATES = dict(min_pair_weight=0.25, min_src_weight=0.5, min_pair_count=1.0)
@@ -84,8 +87,7 @@ def test_score_gate_cuda_matches_plain(cuda, half_life):
                      **GATES)
     w_eff = lanes[0]
     if half_life is not None:
-        dt = torch.clamp_min(sc[2] - lt.float(), 0.0)
-        w_eff = w_eff * torch.exp2(-dt / half_life)
+        w_eff = decay_exp2(w_eff, lt, sc[2], half_life)
     exp = ref.score_gate_ref(w_eff, *lanes[1:], ok, sc[0], sc[1], COEFS,
                              **GATES)
     both = torch.isfinite(got) & torch.isfinite(exp)
@@ -97,7 +99,8 @@ def test_score_gate_cuda_matches_plain(cuda, half_life):
 
 
 @pytest.mark.parametrize("shape,k", [((4096, 64), 8), ((7, 40), 8),
-                                     ((33, 64), 16), ((5, 3), 6)])
+                                     ((33, 64), 16), ((5, 3), 6),
+                                     ((100, 128), 8), ((9, 100), 16)])
 def test_bucket_topk_cuda_matches_plain(cuda, shape, k):
     rng = np.random.default_rng(shape[0])
     g = np.floor(rng.random(shape).astype(np.float32) * 20)   # many ties
@@ -111,27 +114,123 @@ def test_bucket_topk_cuda_matches_plain(cuda, shape, k):
     assert torch.equal(args[fin], ea[fin])
     assert bool((args[~fin] == shape[1]).all())
     with pytest.raises(ValueError):
-        bucket_topk(torch.zeros((2, 65), device=cuda), 2)
+        bucket_topk(torch.zeros((2, 129), device=cuda), 2)
 
 
-def _run(device, n_ticks=9, lazy=False):
+@pytest.mark.parametrize("W,MC", [(8, 4), (16, 8), (128, 8), (100, 3)])
+def test_chain_find_cuda_matches_plain(cuda, W, MC):
+    rng = np.random.default_rng(W + MC)
+    R, B = 512, 5000
+    kh = rng.integers(0, 2**32, (R, W), dtype=np.uint32)
+    kl = rng.integers(0, 2**32, (R, W), dtype=np.uint32)
+    kh[rng.random((R, W)) < 0.3] = 0
+    kl[kh == 0] = 0
+    kh[:, -1], kl[:, -1] = kh[:, 0], kl[:, 0]    # a key twice in a region
+    depth = rng.integers(0, MC + 1, B)              # -1-terminated prefixes
+    regs = rng.integers(0, R, (B, MC)).astype(np.int32)
+    regs[np.arange(MC)[None, :] >= depth[:, None]] = -1
+    r0 = np.maximum(regs[np.arange(B), rng.integers(0, MC, B)], 0)
+    c0 = rng.integers(0, W, B)
+    dh, dl = kh[r0, c0], kl[r0, c0]                 # mostly present keys
+    absent = rng.random(B) < 0.3
+    dh[absent] ^= np.uint32(0xBEEF)
+    active = rng.random(B) < 0.9
+    args = [_t(x, cuda) for x in (kh, kl, regs, dh, dl, active)]
+    before = tk.LAUNCHES["chain_find"]
+    got = chain_find(*args)
+    assert tk.LAUNCHES["chain_find"] == before + 1
+    exp = ref.chain_find_ref(*args)
+    assert torch.equal(got, exp)
+    assert int((got >= 0).sum()) > B // 3 and int((got < 0).sum()) > B // 10
+    with pytest.raises(ValueError):
+        chain_find(torch.zeros((4, 256), dtype=torch.int32, device=cuda),
+                   torch.zeros((4, 256), dtype=torch.int32, device=cuda),
+                   *args[2:])
+
+
+@pytest.mark.parametrize("half_life", [None, 6.0])
+@pytest.mark.parametrize("R,W,K", [(4096, 128, 8), (300, 16, 8), (50, 40, 16)])
+def test_region_rank_cuda_matches_plain(cuda, half_life, R, W, K):
+    rng = np.random.default_rng(R + W)
+    mk = lambda *s: (rng.random(s) * 1.0).astype(np.float32)
+    w_ab, c_ab = np.floor(mk(R, W) * 20) / 4, np.floor(mk(R, W) * 20)
+    w_a, w_b = np.floor(mk(R) * 50), np.floor(mk(R, W) * 50)   # many ties
+    c_a = np.floor(mk(R) * 100) + 20
+    c_b = np.maximum(c_ab, np.floor(mk(R, W) * 100))
+    ok = rng.random((R, W)) < 0.8
+    ok[0] = False
+    lt = rng.integers(0, 20, (R, W)).astype(np.int32)
+    lanes = [_t(x, cuda) for x in (w_ab, c_ab, w_a, w_b, c_a, c_b)]
+    ok_t, lt_t = _t(ok, cuda), _t(lt, cuda)
+    sc = [torch.tensor(x, dtype=torch.float32, device=cuda)
+          for x in (1e4, 2e4, 25.0)]
+    before = tk.LAUNCHES["region_rank"]
+    vals, args, npass = region_rank(*lanes, ok_t, lt_t, *sc, k=K,
+                                    coefs=COEFS, half_life=half_life, **GATES)
+    assert tk.LAUNCHES["region_rank"] == before + 1
+    w_eff = lanes[0]
+    if half_life is not None:
+        w_eff = decay_exp2(w_eff, lt_t, sc[2], half_life)
+    ev, ea, en = ref.region_rank_ref(w_eff, *lanes[1:], ok_t, sc[0], sc[1],
+                                     K, COEFS, **GATES)
+    # a row may differ only where the lazy gate sits within 1 ulp of
+    # min_pair_weight; every other row is exact.
+    near = ((w_eff - GATES["min_pair_weight"]).abs()
+            <= 2.0 ** -23 * 0.25).any(1)
+    same = (npass == en) & (vals == ev).all(1) & (args == ea).all(1)
+    assert bool((same | near).all())
+    assert int(same.sum()) > 0.99 * R
+    assert bool((args[vals == -torch.inf] == W).all())
+    with pytest.raises(ValueError):
+        region_rank(*(torch.zeros((2, 129), device=cuda) for _ in range(2)),
+                    torch.zeros(2, device=cuda),
+                    torch.zeros((2, 129), device=cuda),
+                    torch.zeros(2, device=cuda),
+                    torch.zeros((2, 129), device=cuda),
+                    torch.zeros((2, 129), dtype=torch.bool, device=cuda),
+                    None, *sc, k=K, coefs=COEFS, **GATES)
+
+
+def test_assoc_score_cuda_matches_plain(cuda):
+    rng = np.random.default_rng(12)
+    C = 1 << 16
+    mk = lambda s: (rng.random(C) * s).astype(np.float32)
+    w_ab, c_ab = mk(5), np.floor(mk(20))
+    c_a = np.maximum(c_ab, np.floor(mk(100)))
+    c_b = np.maximum(c_ab, np.floor(mk(100)))
+    lanes = [_t(x, cuda) for x in (w_ab, c_ab, mk(50), mk(50), c_a, c_b)]
+    sc = [torch.tensor(x, dtype=torch.float32, device=cuda)
+          for x in (1e4, 2e4)]
+    before = tk.LAUNCHES["assoc_score"]
+    got = assoc_score(*lanes, *sc, coefs=COEFS)
+    assert tk.LAUNCHES["assoc_score"] == before + 1
+    torch.testing.assert_close(got, score_body(*lanes, *sc, COEFS),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _run(device, n_ticks=9, lazy=False, layout="hash"):
     kw = dict(decay=DecayConfig(policy="lazy"), prune_every=4) if lazy else {}
     stream = SyntheticStream(StreamConfig(**STREAM), seed=11)
-    eng = SearchAssistanceEngine(EngineConfig(**CFG, **kw), device=device)
+    eng = SearchAssistanceEngine(EngineConfig(**CFG, **kw, cooc_layout=layout),
+                                 device=device)
     for t in range(n_ticks):
         eng.step(*stream.gen_tick(t))
     return eng
 
 
+@pytest.mark.parametrize("layout", ["hash", "region"])
 @pytest.mark.parametrize("lazy", [False, True])
-def test_engine_on_card_matches_engine_on_cpu(cuda, lazy):
-    """Sweep policy: all three kernels run. Lazy policy: no decay sweep;
-    score_gate decays in-kernel (half_life)."""
+def test_engine_on_card_matches_engine_on_cpu(cuda, lazy, layout):
+    """Sweep policy: every kernel of the layout's path runs. Lazy policy:
+    no decay sweep; score_gate / region_rank decay in-kernel (half_life)."""
     tk.reset_launches()
-    g = _run(cuda, lazy=lazy)
-    used = ("score_gate", "bucket_topk") + (() if lazy else ("decay_prune_multi",))
+    g = _run(cuda, lazy=lazy, layout=layout)
+    used = [n for n in tk.PATH_KERNELS[layout]
+            if not (lazy and n == "decay_prune_multi")]
     assert all(tk.LAUNCHES[name] > 0 for name in used), tk.LAUNCHES
-    c = _run("cpu", lazy=lazy)
+    assert all(tk.LAUNCHES[name] == 0 for name in tk.KERNELS
+               if name not in used), tk.LAUNCHES
+    c = _run("cpu", lazy=lazy, layout=layout)
     a, b = g.state_arrays(), c.state_arrays()
     for i in range(len(a)):
         x, y = a[f"leaf_{i}"], b[f"leaf_{i}"]
@@ -146,7 +245,9 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, lazy):
                                    rtol=5e-3, atol=1e-4)
 
 
-def test_two_runs_on_card_are_bit_identical(cuda):
-    a, b = _run(cuda).state_arrays(), _run(cuda).state_arrays()
+@pytest.mark.parametrize("layout", ["hash", "region"])
+def test_two_runs_on_card_are_bit_identical(cuda, layout):
+    a = _run(cuda, layout=layout).state_arrays()
+    b = _run(cuda, layout=layout).state_arrays()
     for i in range(len(a)):
         assert a[f"leaf_{i}"].tobytes() == b[f"leaf_{i}"].tobytes(), i

@@ -152,6 +152,8 @@ def test_state_arrays_roundtrip_and_step_many():
     np.testing.assert_equal(c.state_arrays(), b.state_arrays())
 
 
-def test_region_layout_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        EngineConfig(cooc_layout="region")
+@pytest.mark.parametrize("log2c", range(14, 25))
+def test_region_width_matches_jax(log2c):
+    from repro.core.plan import default_region_width
+    cfg = EngineConfig(cooc_layout="region", cooc_capacity=1 << log2c)
+    assert cfg.region_w == default_region_width(1 << log2c)

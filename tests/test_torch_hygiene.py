@@ -63,8 +63,23 @@ def _make_session_table(**kw):
     return make_session_table(1 << 8, 4, **kw).key_hi
 
 
+def _make_region_cooc_store(**kw):
+    import dataclasses
+    from repro_torch.core.engine import make_cooc_store
+    cfg = dataclasses.replace(_cfg(), cooc_layout="region")
+    return make_cooc_store(cfg, **kw).chain_region
+
+
+def _make_region_table(**kw):
+    from repro_torch.core.stores import make_region_table
+    return make_region_table(1 << 8, 16, 1 << 8, 4,
+                             {"weight": torch.float32}, **kw).region_owner
+
+
 @pytest.mark.parametrize("make", [_init_state, _make_cooc_store, _make_table,
-                                  _make_session_table],
+                                  _make_session_table,
+                                  _make_region_cooc_store,
+                                  _make_region_table],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_state_constructors_default_to_cuda_and_refuse_without_it(
         monkeypatch, make):

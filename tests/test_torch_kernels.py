@@ -7,13 +7,17 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.kernels.assoc_score import assoc_score as j_assoc_score
 from repro.kernels.decay_prune import decay_prune_multi as j_decay_prune_multi
 from repro.kernels.topk_select import bucket_topk as j_bucket_topk
 from repro.kernels.topk_select import score_gate as j_score_gate
 from repro_torch import kernels as tk
 from repro_torch.kernels import build
+from repro_torch.kernels.assoc_score import assoc_score
 from repro_torch.kernels.decay_prune import decay_prune_multi
-from repro_torch.kernels.topk_select import bucket_topk, score_gate
+from repro_torch.kernels.region_probe import chain_find
+from repro_torch.kernels.topk_select import bucket_topk, region_rank, \
+    score_gate
 
 COEFS = (1.0, 0.15, 0.02, 0.0)
 GATES = dict(min_pair_weight=0.25, min_src_weight=0.5, min_pair_count=1.0)
@@ -110,6 +114,21 @@ def test_score_gate_plain_matches_pallas(C, half_life, coefs, rtol, atol):
     np.testing.assert_allclose(got[fin], exp[fin], rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("C", [1024, 8192])
+@pytest.mark.parametrize("coefs,rtol,atol", [((1.0, 0.15, 0.0, 0.3), 1e-5, 1e-6),
+                                              (COEFS, 5e-3, 1e-4)])
+def test_assoc_score_plain_matches_pallas(C, coefs, rtol, atol):
+    """The stand-alone kernel's plain route (``score_body``) against the
+    Pallas ``assoc_score``, at the tolerances of the score_gate test."""
+    lanes, _, _ = _score_inputs(C, C + 3)
+    tw, tc = 1e4, 2e4
+    got = assoc_score(*[_t(x) for x in lanes], tw, tc, coefs=coefs).numpy()
+    exp = np.asarray(j_assoc_score(*[jnp.asarray(x) for x in lanes],
+                                   jnp.float32(tw), jnp.float32(tc),
+                                   coefs=coefs, interpret=True))
+    np.testing.assert_allclose(got, exp, rtol=rtol, atol=atol)
+
+
 def test_assoc_lanes_match_jnp_reference():
     """condprob, pmi and chi2 within rtol 1e-5 of the JAX lanes; LLR within
     the f32 rounding bound of its nine x*log(x) terms."""
@@ -160,6 +179,14 @@ def test_cpu_route_uses_plain_version_and_counts_nothing():
     kh, kl, ws, aux = _table(64, 0)
     decay_prune_multi(_t(kh), _t(kl), [_t(ws[0])], [], 0.5, 0.1)
     bucket_topk(torch.zeros((4, 8)), 2)
+    z = torch.zeros((4, 8))
+    one = torch.tensor(1.0)
+    region_rank(z, z, z[:, 0], z, z[:, 0], z, z > 0, None, one, one, None,
+                k=2, coefs=COEFS, **GATES)
+    chain_find(z.int(), z.int(), torch.full((3, 2), -1, dtype=torch.int32),
+               torch.ones(3, dtype=torch.int32),
+               torch.ones(3, dtype=torch.int32), torch.ones(3, dtype=bool))
+    assoc_score(*([z[0]] * 6), 1.0, 1.0, coefs=COEFS)
     assert tk.LAUNCHES == {name: 0 for name in tk.KERNELS}
     assert tk.route(torch.zeros(1)) == "plain"
     with pytest.raises(RuntimeError):
@@ -175,6 +202,7 @@ def test_missing_nvcc_raises(monkeypatch):
 
 def test_kernel_sources_and_library_names():
     stems = {p.stem for p in build.sources()}
-    assert stems == {"decay_prune", "score_gate", "bucket_topk"}
+    assert stems == {"decay_prune", "score_gate", "bucket_topk", "chain_find",
+                     "region_rank", "assoc_score"}
     names = {build.library_path(p).name for p in build.sources()}
-    assert len(names) == 3
+    assert len(names) == 6

@@ -3,7 +3,9 @@
 Compares two ``state_arrays()`` dicts leaf by leaf (the JAX engine's
 ``leaf_{i}`` order) under the reference contract of
 ``tests/test_engine.py``: keys, slot placement, ``n_dropped``, sessions and
-tick exact; weights within rtol 2e-3; counts within rtol 1e-5. A key that
+tick exact (and, under the region layout, the chain directory, region
+fills and owners); weights within rtol 2e-3; counts within rtol 1e-5. The
+layout is read from the number of leaves (26 hash, 27 region). A key that
 is live on one side only and whose weight there lies within the weight
 tolerance of the prune threshold is a *prune flip*: it is counted and
 returned (callers print it), never hidden, and any other key mismatch
@@ -15,11 +17,24 @@ from typing import Dict
 
 import numpy as np
 
-# leaf indices (JAX flatten order; see repro_torch.core.engine._flat_leaves)
+# Leaf indices per cooc layout (JAX flatten order; see
+# repro_torch.core.engine._flat_leaves). The qstore comes first, the cooc
+# store next, then the sessions and the tick.
 QSTORE = dict(key_hi=0, key_lo=1, count=2, last_tick=3, weight=4, n_dropped=5)
-COOC = dict(key_hi=6, key_lo=7, count=8, dst_hi=9, dst_lo=10, last_tick=11,
-            src_hi=12, src_lo=13, weight=14, n_dropped=15)
-N_LEAVES = 26
+LAYOUTS = {
+    "hash": dict(
+        cooc=dict(key_hi=6, key_lo=7, count=8, dst_hi=9, dst_lo=10,
+                  last_tick=11, src_hi=12, src_lo=13, weight=14,
+                  n_dropped=15),
+        n_leaves=26),
+    "region": dict(
+        cooc=dict(key_hi=6, key_lo=7, count=8, last_tick=9, weight=10,
+                  n_dropped=16),
+        # per-region and directory leaves: exact, flips or not
+        exact=dict(chain_region=11, chain_hi=12, chain_lo=13,
+                   region_fill=14, region_owner=15),
+        n_leaves=27),
+}
 WEIGHT_RTOL = 2e-3
 COUNT_RTOL = 1e-5
 
@@ -41,12 +56,14 @@ def compare_states(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray],
                    prune_threshold: float) -> int:
     """Assert the parity contract between two state dicts; returns the
     number of prune flips (0 means every key and slot matched exactly)."""
-    assert len(a) == len(b) == N_LEAVES
-    for i in range(N_LEAVES):
+    assert len(a) == len(b)
+    (layout,) = [v for v in LAYOUTS.values() if v["n_leaves"] == len(a)]
+    n = layout["n_leaves"]
+    for i in range(n):
         x, y = a[f"leaf_{i}"], b[f"leaf_{i}"]
         assert x.dtype == y.dtype and x.shape == y.shape, (i, x.dtype, y.dtype)
     flips = 0
-    for table in (QSTORE, COOC):
+    for table in (QSTORE, layout["cooc"]):
         diff = _prune_flips(a, b, table, prune_threshold)
         flips += len(diff)
         same = np.ones(a[f"leaf_{table['key_hi']}"].shape, bool)
@@ -63,7 +80,11 @@ def compare_states(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray],
                                            err_msg=name)
             else:
                 np.testing.assert_array_equal(x[same], y[same], err_msg=name)
-    for i in range(16, N_LEAVES):   # sessions and tick
+    for name, leaf in layout.get("exact", {}).items():
+        np.testing.assert_array_equal(a[f"leaf_{leaf}"], b[f"leaf_{leaf}"],
+                                      err_msg=name)
+    first_session = layout["cooc"]["n_dropped"] + 1
+    for i in range(first_session, n):   # sessions and tick
         np.testing.assert_array_equal(a[f"leaf_{i}"], b[f"leaf_{i}"],
                                       err_msg=f"leaf_{i}")
     return flips
