@@ -9,12 +9,12 @@ Phases, each of which must pass:
      every CUDA kernel built from ``src/repro_torch/kernels/csrc``;
   2. kernels at main-path shapes — each kernel against its plain torch
      version on the card (random inputs from a numpy seed; ``chain_find``
-     on the region store and the largest pair batch of the phase-4 region
-     run): max error; the kernel's own time (its bare launch into
-     preallocated outputs), the wrapper's, the plain version's and the
-     library call's time (CUDA events, median of 20 after warm-up); and
-     the least time the card could take (HBM bytes at 3.35 TB/s or
-     operations at 67 TFLOP/s f32, whichever is larger);
+     on the region store and the largest pair batch of an untimed replay
+     of the phase-4 region run's ticks): max error; the kernel's own time
+     (its bare launch into preallocated outputs), the wrapper's, the plain
+     version's and the library call's time (CUDA events, median of 20
+     after warm-up); and the least time the card could take (HBM bytes
+     at 3.35 TB/s or operations at 67 TFLOP/s f32, whichever is larger);
   3. the engine on the card against the engine on the CPU at a small size
      (state under the parity contract, suggestions), under both cooc
      layouts (hash: sweep policy; region: sweep and lazy policies);
@@ -305,8 +305,8 @@ def check_region_rank(R: int, W: int, K: int, dev):
 
 
 def check_chain_find(table, batch, dev):
-    """chain_find on the region store of the phase-4 region run and its
-    largest pair batch, held exactly against the plain version."""
+    """chain_find on the region store and largest pair batch of the
+    phase-4 region run's ticks, held exactly against the plain version."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.region_probe import chain_find, launch_chain_find
@@ -318,22 +318,29 @@ def check_chain_find(table, batch, dev):
     exp = ref.chain_find_ref(kh, kl, regs, dh, dl, active)
     if not torch.equal(got, exp):
         raise AssertionError("chain_find differs from the plain version")
-    # depths this data visits: up to the hit, else the whole chain
-    n_regs = (regs >= 0).sum(1)
+    # what this data needs: an active row reads its chain's region ids up
+    # to the hit (all MC on a miss), its dst key, and one region row of
+    # keys per region visited; every row reads its active flag and writes
+    # its result.
+    hit = got >= 0
     hit_depth = torch.argmax((regs == torch.div(
         got, W, rounding_mode="floor")[:, None]).to(torch.uint8), 1)
-    visited = torch.where(got >= 0, hit_depth + 1, n_regs)
+    ids_read = torch.where(hit, hit_depth + 1, MC)
+    visited = torch.where(hit, (regs >= 0).cumsum(1).gather(
+        1, hit_depth[:, None])[:, 0], (regs >= 0).sum(1))
+    n_active = int(active.sum())
+    n_ids = int(torch.where(active, ids_read, 0).sum())
     n_visits = int(torch.where(active, visited, 0).sum())
-    log(f"  chain_find: {B} rows ({int(active.sum())} active, "
-        f"{int((got >= 0).sum())} hits), {n_visits} region rows visited, "
+    log(f"  chain_find: {B} rows ({n_active} active, {int(hit.sum())} "
+        f"hits), {n_ids} region ids and {n_visits} region rows read, "
         f"MC={MC}, W={W}")
     out = torch.empty_like(got)
     ms = time_ms(lambda: launch_chain_find(kh, kl, regs, dh, dl, active, out))
     wrapper_ms = time_ms(lambda: chain_find(kh, kl, regs, dh, dl, active))
     plain_ms = time_ms(lambda: ref.chain_find_ref(kh, kl, regs, dh, dl,
                                                   active))
-    b_ms, b_by = bound(n_visits * W * 8 + B * (MC * 4 + 8 + 1 + 4),
-                       n_visits * W * 2)
+    b_ms, b_by = bound(n_ids * 4 + n_active * 8 + B * (1 + 4)
+                       + n_visits * W * 8, n_visits * W * 2)
     return dict(max_abs_err=0.0, ms=ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
@@ -517,30 +524,12 @@ def state_bits_equal(a, b) -> bool:
 
 def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
     """Phase 4 for one cooc layout: drive the path, check and report it.
-    Returns (launches, the largest chain_find batch or None)."""
+    Returns the launch counts of the driven path."""
     import torch
     from repro_torch import kernels as tk
-    from repro_torch.kernels import ops as kops
     cfg, _ = deployment_config(layout)
-    largest = {}
-    chain_find = kops.chain_find
-
-    def spy(khi, klo, regs, dh, dl, active):
-        # keep the largest pair batch (most active rows) for phase 2's
-        # chain_find check
-        n = int(active.sum())
-        if n > largest.get("n", -1):
-            largest.update(n=n, batch=tuple(
-                t.clone() for t in (regs, dh, dl, active)))
-        return chain_find(khi, klo, regs, dh, dl, active)
-
-    kops.chain_find = spy
     torch.cuda.reset_peak_memory_stats()
-    try:
-        eng, step_ms, cycle_ms, results, launches = main_path(dev, ticks,
-                                                              layout)
-    finally:
-        kops.chain_find = chain_find
+    eng, step_ms, cycle_ms, results, launches = main_path(dev, ticks, layout)
     st = eng.state
     drops = {n: int(getattr(st, n).n_dropped)
              for n in ("qstore", "cooc", "sessions")}
@@ -592,7 +581,34 @@ def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
         sugg = eng.suggest_fp(stream.tok.query_fp(q), k=4)
         log(f"  {layout} {q!r:24s} -> "
             f"{[(stream.tok.text(d), round(s, 3)) for d, s in sugg]}")
-    return eng, launches, largest.get("batch")
+    return launches
+
+
+def largest_chain_find_batch(dev, ticks):
+    """An untimed replay of the region main path's ticks that keeps the
+    pair batch with the most active rows passed to chain_find. Returns the
+    replay's region store and that batch (regs, dst_hi, dst_lo, active)."""
+    from repro_torch.core.engine import SearchAssistanceEngine
+    from repro_torch.kernels import ops as kops
+    cfg, _ = deployment_config("region")
+    largest = {}
+    chain_find = kops.chain_find
+
+    def spy(khi, klo, regs, dh, dl, active):
+        n = int(active.sum())
+        if n > largest.get("n", -1):
+            largest.update(n=n, batch=tuple(
+                t.clone() for t in (regs, dh, dl, active)))
+        return chain_find(khi, klo, regs, dh, dl, active)
+
+    kops.chain_find = spy
+    try:
+        eng = SearchAssistanceEngine(cfg, device=dev)
+        for events, tweets in ticks:
+            eng.step(events, tweets)
+    finally:
+        kops.chain_find = chain_find
+    return eng.state.cooc, largest["batch"]
 
 
 def two_runs_bit_identical(dev, ticks, layout) -> None:
@@ -680,18 +696,18 @@ def main() -> int:
         f"queries + {scfg.tweets_per_tick} tweets; stream generated in "
         f"{time.perf_counter() - t0:.1f} s")
     launches = {}
-    eng, launches["hash"], _ = run_main_path(dev, ticks, extra_tick, scfg,
-                                             "hash", stream)
-    del eng
-    torch.cuda.empty_cache()
-    eng, launches["region"], batch = run_main_path(dev, ticks, extra_tick,
-                                                   scfg, "region", stream)
-    log("[2] chain_find at the region run's shapes")
-    rows["chain_find"] = check_chain_find(eng.state.cooc, batch, dev)
+    for layout in ("hash", "region"):
+        launches[layout] = run_main_path(dev, ticks, extra_tick, scfg,
+                                         layout, stream)
+        torch.cuda.empty_cache()
+    log("[2] chain_find at the region run's shapes (untimed replay of its "
+        "ticks)")
+    table, batch = largest_chain_find_batch(dev, ticks)
+    rows["chain_find"] = check_chain_find(table, batch, dev)
     log(f"  chain_find at its main-path shape: "
         f"{json.dumps(rows['chain_find'])}")
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
-    del eng, batch
+    del table, batch
     torch.cuda.empty_cache()
 
     # ---- 5. determinism ----
