@@ -14,17 +14,28 @@ Phases, each of which must pass:
      (its bare launch into preallocated outputs), the wrapper's, the plain
      version's and the library call's time (CUDA events, median of 20
      after warm-up); and the least time the card could take (HBM bytes
-     at 3.35 TB/s or operations at 67 TFLOP/s f32, whichever is larger);
+     at 3.35 TB/s or operations at 67 TFLOP/s f32, whichever is larger).
+     ``edit_distance`` runs on the largest pair batch of an untimed run of
+     the phase-4 spelling job;
   3. the engine on the card against the engine on the CPU at a small size
      (state under the parity contract, suggestions), under both cooc
-     layouts (hash: sweep policy; region: sweep and lazy policies);
+     layouts (hash: sweep policy; region: sweep and lazy policies); the
+     spelling job and the count-min sketch on the card against the CPU
+     (the small engine's qstore plus planted misspellings);
   4. the main paths at deployment scale — ``SearchAssistanceEngine.step``
      for 17 ticks (4 decay sweeps, 2 rank cycles), once with the hash cooc
      layout and once with the region layout, each with its kernels'
      launch counts set to 0 just before and read just after; suggestions
-     out, no drops on the hash path (region drops are printed);
+     out, no drops on the hash path (region drops are printed). After the
+     hash path, the spelling job over its 17-tick qstore, as the serving
+     loop runs it (export, join_fp, tok.text, ``spelling_cycle``), with
+     ``edit_distance``'s launches counted the same way: sources, filtered
+     pairs, wall time, corrections, peak memory, the stream's planted
+     misspellings that are live and corrected to their true form; then 256
+     sources re-solved over all candidates with the plain version;
   5. determinism — the same stream twice gives bit-identical state, under
-     each layout.
+     each layout, and the spelling job twice gives the same corrections in
+     the same order.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -375,26 +386,61 @@ def check_bucket_topk(R: int, L: int, K: int, dev):
                 library_ms=library_ms)
 
 
+ED_OPS_PER_CELL = 7   # f32 adds and mins per DP cell
+
+
+def check_edit_distance(batch, fc: float):
+    """edit_distance on the largest pair batch of the spelling job, held
+    bit for bit against the plain version. The bound counts the cells
+    these pairs fill (a_len x b_len each)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.edit_distance import edit_distance, launch
+    ac, al, bc, bl = batch
+    B, L = ac.shape
+    got = edit_distance(ac, al, bc, bl, first_char_cost=fc)
+    exp = ref.edit_distance_ref(ac, al, bc, bl, first_char_cost=fc)
+    if not torch.equal(got.view(torch.int32), exp.view(torch.int32)):
+        raise AssertionError("edit_distance differs from the plain version")
+    cells = int((al.long() * bl.long()).sum())
+    log(f"  edit_distance: {B} pairs, L={L}, first_char_cost={fc}, "
+        f"{cells} DP cells ({cells / max(B, 1):.1f} a pair)")
+    out = torch.empty_like(got)
+    ms = time_ms(lambda: launch(ac, al, bc, bl, out, fc))
+    wrapper_ms = time_ms(lambda: edit_distance(ac, al, bc, bl,
+                                               first_char_cost=fc))
+    plain_ms = time_ms(lambda: ref.edit_distance_ref(ac, al, bc, bl, fc),
+                       reps=3, warmup=1)
+    b_ms, b_by = bound(B * (2 * L + 8 + 4), cells * ED_OPS_PER_CELL)
+    return dict(max_abs_err=float((got - exp).abs().max()), ms=ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: the engine.
 # ---------------------------------------------------------------------------
 
-def small_parity(dev, layout="hash", lazy=False) -> None:
+def engine_stream_config():
+    from repro_torch.data.stream import StreamConfig
+    return StreamConfig(vocab_size=256, n_users=150, queries_per_tick=128,
+                        tweets_per_tick=16, tweet_words=4, tweet_grams=6)
+
+
+def small_parity(dev, layout="hash", lazy=False):
     """The engine on the card against the engine on the CPU, on the
     ``tests/test_engine.py`` stream and configuration (9 ticks)."""
     import numpy as np
     from repro_torch.core.decay import DecayConfig
     from repro_torch.core.engine import EngineConfig, SearchAssistanceEngine
-    from repro_torch.data.stream import StreamConfig, SyntheticStream
+    from repro_torch.data.stream import SyntheticStream
     kw = dict(decay=DecayConfig(policy="lazy"), prune_every=4) if lazy else {}
     cfg = EngineConfig(query_capacity=1 << 12, cooc_capacity=1 << 14,
                        session_capacity=1 << 11, session_window=4,
                        decay_every=4, rank_every=8, cooc_layout=layout, **kw)
     engines = []
     for device in (dev, "cpu"):
-        stream = SyntheticStream(StreamConfig(
-            vocab_size=256, n_users=150, queries_per_tick=128,
-            tweets_per_tick=16, tweet_words=4, tweet_grams=6), seed=11)
+        stream = SyntheticStream(engine_stream_config(), seed=11)
         eng = SearchAssistanceEngine(cfg, device=device)
         for t in range(9):
             eng.step(*stream.gen_tick(t))
@@ -423,6 +469,63 @@ def small_parity(dev, layout="hash", lazy=False) -> None:
         f"CPU: {n_exact}/{len(a)} leaves bit-identical, keys and "
         f"slots exact, {len(sa)} sources, top-3 identity agreement "
         f"{agree}/{len(sa)}")
+    return engines
+
+
+PLANTED = [("justin bieber", 900.0), ("justin beiber", 5.0),
+           ("justin biber", 3.0), ("hadoop", 800.0), ("hadop", 4.0),
+           ("lady gaga", 700.0), ("lady gagga", 6.0), ("world cup", 600.0),
+           ("wrold cup", 2.0)]
+TRUE_FORM = {"justin beiber": "justin bieber", "justin biber": "justin bieber",
+             "hadop": "hadoop", "lady gagga": "lady gaga",
+             "wrold cup": "world cup"}
+
+
+def small_spelling(dev, engine) -> None:
+    """The spelling job on the card against the CPU over a small engine's
+    live qstore plus planted misspellings, and a count-min sketch on the
+    card against the CPU (integer weights, so sums are exact)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sketch as tsk
+    from repro_torch.core.hashing import fingerprint, from_np_u32, join_fp
+    from repro_torch.core.spelling import spelling_cycle
+    from repro_torch.core.stores import export_live
+    from repro_torch.data.stream import SyntheticStream
+    exp = export_live(engine.state.qstore)
+    tok = SyntheticStream(engine_stream_config(), seed=11).tok
+    fps = join_fp(exp["key_hi"], exp["key_lo"])
+    texts = [tok.text(int(f)) for f in fps] + [t for t, _ in PLANTED]
+    fps = np.concatenate([fps, np.array([fingerprint(t) for t, _ in PLANTED],
+                                        np.uint64)])
+    weights = np.concatenate([exp["weight"],
+                              np.float32([w for _, w in PLANTED])])
+    got = spelling_cycle(fps, texts, weights, device=dev)
+    cpu = spelling_cycle(fps, texts, weights, device="cpu")
+    if list(got.items()) != list(cpu.items()) or not got:
+        raise AssertionError("spelling job differs between card and CPU")
+    fixed = sum(got.get(fingerprint(v), (None,))[0] == fingerprint(t)
+                for v, t in TRUE_FORM.items())
+    rng = np.random.default_rng(SEED + 5)
+    hi = rng.integers(0, 2**32, 1 << 16, dtype=np.uint32)
+    lo = rng.integers(0, 2**32, 1 << 16, dtype=np.uint32)
+    w = np.floor(rng.random(1 << 16) * 8).astype(np.float32)
+    valid = rng.random(1 << 16) < 0.9
+    res = []
+    for d in (dev, "cpu"):
+        kh, kl = from_np_u32(hi, d), from_np_u32(lo, d)
+        sk = tsk.sketch_update(tsk.make_sketch(4, 1 << 12, device=d), kh, kl,
+                               torch.from_numpy(w).to(d),
+                               torch.from_numpy(valid).to(d))
+        sk = tsk.sketch_decay(sk, 0.5)
+        res.append((sk.table.cpu(), tsk.sketch_query(sk, kh, kl).cpu()))
+    if not all(torch.equal(x, y) for x, y in zip(*res)):
+        raise AssertionError("count-min sketch differs between card and CPU")
+    log(f"  spelling job, card vs CPU: {len(fps)} sources ({len(PLANTED)} "
+        f"planted), {len(got)} corrections, same items in the same order; "
+        f"planted misspellings corrected {fixed}/{len(TRUE_FORM)}; "
+        f"count-min sketch 4 x 4096 over {1 << 16} keys: table and "
+        f"queries equal")
 
 
 def deployment_config(layout="hash"):
@@ -524,13 +627,17 @@ def state_bits_equal(a, b) -> bool:
 
 def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
     """Phase 4 for one cooc layout: drive the path, check and report it.
-    Returns the launch counts of the driven path."""
+    Returns the launch counts of the driven path and a copy of its query
+    store as the timed ticks left it."""
     import torch
     from repro_torch import kernels as tk
     cfg, _ = deployment_config(layout)
     torch.cuda.reset_peak_memory_stats()
     eng, step_ms, cycle_ms, results, launches = main_path(dev, ticks, layout)
     st = eng.state
+    q = st.qstore
+    qstore = q._replace(key_hi=q.key_hi.clone(), key_lo=q.key_lo.clone(),
+                        lanes={k: v.clone() for k, v in q.lanes.items()})
     drops = {n: int(getattr(st, n).n_dropped)
              for n in ("qstore", "cooc", "sessions")}
     Q, C = cfg.query_capacity, cfg.cooc_capacity
@@ -581,7 +688,154 @@ def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
         sugg = eng.suggest_fp(stream.tok.query_fp(q), k=4)
         log(f"  {layout} {q!r:24s} -> "
             f"{[(stream.tok.text(d), round(s, 3)) for d, s in sugg]}")
-    return launches
+    return launches, qstore
+
+
+def spelling_job(dev, qstore, tok, stats=None, times=None):
+    """The serving loop's periodic spelling job: export the live queries,
+    join their fingerprints, look up their texts, run the job. ``times``,
+    if given, receives the host-clock ms of each step (the last synced)."""
+    import torch
+    from repro_torch.core.hashing import join_fp
+    from repro_torch.core.spelling import SpellConfig, spelling_cycle
+    from repro_torch.core.stores import export_live
+    t0 = time.perf_counter()
+    exp = export_live(qstore)
+    t1 = time.perf_counter()
+    fps = join_fp(exp["key_hi"], exp["key_lo"])
+    texts = [tok.text(int(f)) for f in fps]
+    t2 = time.perf_counter()
+    corr = spelling_cycle(fps, texts, exp["weight"], SpellConfig(),
+                          device=dev, stats=stats)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if times is not None:
+        times.update(export_ms=(t1 - t0) * 1e3, texts_ms=(t2 - t1) * 1e3,
+                     spelling_cycle_ms=(t3 - t2) * 1e3)
+    return fps, texts, exp["weight"], corr
+
+
+def run_spelling(dev, qstore, stream):
+    """Phase 4's spelling job over the hash path's 17-tick query store,
+    with edit_distance's launch count set to 0 just before and read just
+    after; then the host share of spelling_cycle (scan_order) timed alone
+    and one more job under the profiler. Returns (its launch counts, the
+    job's inputs and result)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.spelling import SpellConfig, scan_order
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats, times = {}, {}
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    fps, texts, weights, corr = spelling_job(dev, qstore, stream.tok, stats,
+                                             times)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    missing = [n for n in tk.PATH_KERNELS["spelling"] if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the spelling job: "
+                             f"{missing}")
+    if not corr:
+        raise AssertionError("the spelling job emitted no correction")
+    t0 = time.perf_counter()
+    scan_order(texts, weights, SpellConfig())
+    times["scan_order_ms"] = (time.perf_counter() - t0) * 1e3
+    live = {int(f) for f in fps}
+    planted = [(int(stream.fps[v]), int(stream.fps[t]))
+               for v, t in stream.misspell_of.items()]
+    planted_live = [(v, t) for v, t in planted if v in live]
+    fixed = sum(corr.get(v, (None,))[0] == t for v, t in planted_live)
+    row = {"sources": stats["sources"], "pairs_filtered": stats["pairs"],
+           "blocks": stats["blocks"], "largest_batch": stats["largest_batch"],
+           "edit_distance_launches": launches["edit_distance"],
+           "wall_ms": wall_ms, **times, "corrections": len(corr),
+           "peak_mem_gib": peak, "planted_variants": len(planted),
+           "planted_variants_live": len(planted_live),
+           "planted_variants_corrected": fixed}
+    log("  spelling job: " + json.dumps(row))
+    for v, t in planted_live[:4]:
+        got = corr.get(v)
+        log(f"    {stream.tok.text(v)!r} -> "
+            f"{stream.tok.text(got[0]) if got else None!r} "
+            f"(true form {stream.tok.text(t)!r})")
+    _profiled("spelling job", lambda: spelling_job(dev, qstore, stream.tok))
+    return launches, (fps, texts, weights, corr)
+
+
+def recheck_spelling(dev, job, n_src=256, chunk=32) -> None:
+    """Re-solve n_src sources (half drawn from the corrected ones) against
+    all candidates with the plain version on the card and the JAX
+    package's filter and scan written out in numpy; each must give the
+    job's entry, or none where the job has none."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spelling import SpellConfig, scan_order
+    from repro_torch.kernels import ref
+    fps, texts, weights, corr = job
+    cfg = SpellConfig()
+    order, chars, lens, _ = scan_order(texts, weights, cfg)
+    fp_s, w_s = fps[order], weights[order]
+    n = len(fp_s)
+    rng = np.random.default_rng(SEED)
+    pos = {int(f): i for i, f in enumerate(fp_s)}
+    fixed = np.array([pos[f] for f in corr])
+    pick = rng.choice(fixed, min(len(fixed), n_src // 2), replace=False)
+    rest = np.setdiff1d(np.arange(n), pick)
+    pick = np.concatenate([pick, rng.choice(rest, n_src - len(pick),
+                                            replace=False)])
+    chars_d = torch.from_numpy(chars).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    cand = torch.arange(n, device=dev)
+    n_entries = 0
+    for c0 in range(0, len(pick), chunk):
+        src = pick[c0:c0 + chunk]
+        aa = torch.from_numpy(src).to(dev).repeat_interleave(n)
+        bb = cand.repeat(len(src))
+        d = ref.edit_distance_ref(chars_d[aa], lens_d[aa], chars_d[bb],
+                                  lens_d[bb], cfg.first_char_cost)
+        d = d.view(len(src), n).cpu().numpy()
+        for k, a in enumerate(src):
+            ok = ((w_s >= cfg.freq_boost * w_s[a:a + 1])
+                  & (lens[a] >= cfg.min_len)
+                  & (np.abs(lens[a] - lens) <= int(cfg.max_distance))
+                  & (d[k] > 0.0) & (d[k].astype(np.float64)
+                                    <= cfg.max_distance))
+            exp = None
+            if ok.any():
+                b = int(np.argmin(np.where(ok, d[k], np.inf)))
+                exp = (int(fp_s[b]), float(d[k][b]))
+            got = corr.get(int(fp_s[a]))
+            if got != exp:
+                raise AssertionError(f"source {a}: job {got}, plain "
+                                     f"re-solve {exp}")
+            n_entries += exp is not None
+    log(f"  plain re-solve of {len(pick)} sources against all {n} "
+        f"candidates: {n_entries} corrections, all equal to the job's")
+
+
+def largest_edit_distance_batch(dev, qstore, tok):
+    """An untimed run of the spelling job that keeps the largest pair batch
+    passed to edit_distance."""
+    from repro_torch.kernels import ops as kops
+    largest = {}
+    edit_distance = kops.edit_distance
+
+    def spy(ac, al, bc, bl, *, first_char_cost):
+        if ac.shape[0] > largest.get("n", -1):
+            largest.update(n=ac.shape[0], batch=(ac, al, bc, bl),
+                           fc=first_char_cost)
+        return edit_distance(ac, al, bc, bl, first_char_cost=first_char_cost)
+
+    kops.edit_distance = spy
+    try:
+        spelling_job(dev, qstore, tok)
+    finally:
+        kops.edit_distance = edit_distance
+    return largest["batch"], largest["fc"]
 
 
 def largest_chain_find_batch(dev, ticks):
@@ -653,7 +907,8 @@ def main() -> int:
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for stem in sorted(paths):
         for line in build.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log(f"  {stem}: {line.strip()}")
 
     # ---- 2. kernels at main-path shapes ----
@@ -680,7 +935,7 @@ def main() -> int:
 
     # ---- 3. card vs CPU at a small size ----
     log("[3] engine on the card vs engine on the CPU (test_engine stream)")
-    small_parity(dev)
+    small_spelling(dev, small_parity(dev)[1])
     small_parity(dev, "region")
     small_parity(dev, "region", lazy=True)
 
@@ -697,8 +952,26 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     launches = {}
     for layout in ("hash", "region"):
-        launches[layout] = run_main_path(dev, ticks, extra_tick, scfg,
-                                         layout, stream)
+        launches[layout], qstore = run_main_path(dev, ticks, extra_tick, scfg,
+                                                 layout, stream)
+        torch.cuda.empty_cache()
+        if layout != "hash":
+            continue
+        log(f"[4] spelling job over the hash path's {n_ticks}-tick qstore")
+        launches["spelling"], job = run_spelling(dev, qstore, stream)
+        recheck_spelling(dev, job)
+        for _ in range(2):
+            again = spelling_job(dev, qstore, stream.tok)[3]
+            if list(again.items()) != list(job[3].items()):
+                raise AssertionError("two spelling jobs differ")
+        log(f"[5] determinism: the spelling job twice more, "
+            f"{len(job[3])} corrections, same items in the same order")
+        log("[2] edit_distance at the spelling job's shapes (untimed run)")
+        batch, fc = largest_edit_distance_batch(dev, qstore, stream.tok)
+        rows["edit_distance"] = check_edit_distance(batch, fc)
+        log(f"  edit_distance at its main-path shape: "
+            f"{json.dumps(rows['edit_distance'])}")
+        del qstore, job, batch
         torch.cuda.empty_cache()
     log("[2] chain_find at the region run's shapes (untimed replay of its "
         "ticks)")
@@ -719,7 +992,8 @@ def main() -> int:
                "bucket_topk": ("bucket_topk.cu", "topk_select.py:150"),
                "chain_find": ("chain_find.cu", "region_probe.py:50"),
                "region_rank": ("region_rank.cu", "topk_select.py:236"),
-               "assoc_score": ("assoc_score.cu", "assoc_score.py:81")}
+               "assoc_score": ("assoc_score.cu", "assoc_score.py:81"),
+               "edit_distance": ("edit_distance.cu", "edit_distance.py:107")}
     record = {"kernels": [
         {"name": n, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{sources[n][0]}",

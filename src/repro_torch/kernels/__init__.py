@@ -30,12 +30,13 @@ Kernel sites::
       core/stores.region_lookup
     core/ranking.ranking_cycle_region (grid)   ops.region_rank          region_rank.cu
     core/ranking.ranking_cycle_region (merge)  ops.bucket_topk          bucket_topk.cu
+    core/spelling.spelling_cycle               ops.edit_distance        edit_distance.cu
     (no engine caller)                         assoc_score.assoc_score  assoc_score.cu
 
 The hash layout's path runs ``decay_prune_multi``, ``score_gate`` and
 ``bucket_topk``; the region layout's runs ``decay_prune_multi`` (the
 qstore sweep), ``chain_find``, ``region_rank`` and ``bucket_topk``
-(:data:`PATH_KERNELS`).
+(:data:`PATH_KERNELS`). The spelling job runs ``edit_distance``.
 """
 from __future__ import annotations
 
@@ -44,13 +45,14 @@ from typing import Dict
 import torch
 
 KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk", "chain_find",
-           "region_rank", "assoc_score")
+           "region_rank", "assoc_score", "edit_distance")
 
-# The kernels each cooc layout's main path launches.
+# The kernels each cooc layout's main path, and the spelling job, launch.
 PATH_KERNELS = {
     "hash": ("decay_prune_multi", "score_gate", "bucket_topk"),
     "region": ("decay_prune_multi", "chain_find", "region_rank",
                "bucket_topk"),
+    "spelling": ("edit_distance",),
 }
 
 # Launch counts per kernel: incremented only where a wrapper launches its

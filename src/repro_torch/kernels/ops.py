@@ -11,6 +11,7 @@ from typing import Tuple
 import torch
 
 from . import decay_prune as _dp
+from . import edit_distance as _ed
 from . import region_probe as _rp
 from . import topk_select as _tk
 
@@ -91,3 +92,10 @@ def chain_find(key_hi_r, key_lo_r, regs, dst_hi, dst_lo, active):
     """Region-layout chain find (the region store's insert and lookup):
     the global slot of each pair's dst key along its chain, or -1."""
     return _rp.chain_find(key_hi_r, key_lo_r, regs, dst_hi, dst_lo, active)
+
+
+def edit_distance(a_chars, a_len, b_chars, b_len, *,
+                  first_char_cost: float = 1.5):
+    """Batched weighted OSA edit distance (the spelling job's pairs)."""
+    return _ed.edit_distance(a_chars, a_len, b_chars, b_len,
+                             first_char_cost=float(first_char_cost))

@@ -115,3 +115,56 @@ def chain_find_ref(key_hi_r, key_lo_r, regs, dst_hi, dst_lo, active):
         pos = torch.argmax(m.to(torch.uint8), 1)     # the first match
         found[rows[hit]] = (reg * W + pos)[hit].to(torch.int32)
     return found
+
+
+def edit_distance_ref(a_chars, a_len, b_chars, b_len, first_char_cost=1.5):
+    """Weighted optimal-string-alignment distance per pair.
+
+    ``a_chars``/``b_chars`` u8[B, L] zero-padded, lengths int[B] in
+    [0, L] (clamped there). Edits touching the first character of either
+    string cost ``first_char_cost``, all others 1; an adjacent
+    transposition is one edit. Returns f32[B].
+
+    A port of the JAX ``ref.edit_distance_ref`` that keeps its operation
+    order cell by cell: row 0 as ``fc + (j - 1)``, column 0 built row by
+    row as ``D[i-1][0] + 1`` (``fc`` at i = 1), and each of the
+    substitution, insertion, deletion and transposition terms as one f32
+    add before the mins. Rows are kept as ``[L + 1, B]`` so every step is
+    a contiguous vector op, and each pair's result is taken from row
+    ``a_len`` as the loop passes it instead of from a stored full table.
+    """
+    B, L = a_chars.shape
+    dev = a_chars.device
+    a = a_chars.to(torch.int32).t()          # [L, B]
+    b = b_chars.to(torch.int32).t()
+    f32 = dict(dtype=torch.float32, device=dev)
+    fc = torch.tensor(first_char_cost, **f32)
+    one = torch.tensor(1.0, **f32)
+    big = torch.tensor(1e9, **f32)
+    j_idx = torch.arange(L + 1, **f32)
+    row0 = torch.where(j_idx == 0, 0.0, fc + (j_idx - 1.0))
+    a_len = a_len.to(torch.int64).clamp(0, L)
+    b_len = b_len.to(torch.int64).clamp(0, L)
+    out = row0[b_len]
+    prev2 = prev1 = row0[:, None].expand(L + 1, B)
+    for i in range(1, L + 1):
+        ai = a[i - 1]
+        del_w = fc if i == 1 else one
+        row = torch.empty((L + 1, B), **f32)
+        row[0] = fc.expand(B) if i == 1 else prev1[0] + 1.0
+        for j in range(1, L + 1):
+            bj = b[j - 1]
+            sub_w = fc if (i == 1 or j == 1) else one
+            ins_w = fc if j == 1 else one
+            sub = prev1[j - 1] + torch.where(ai == bj, 0.0, sub_w)
+            d = torch.minimum(torch.minimum(sub, row[j - 1] + ins_w),
+                              prev1[j] + del_w)
+            if i >= 2 and j >= 2:
+                tw = fc if (i == 2 or j == 2) else one
+                tmatch = (a[i - 2] == bj) & (ai == b[j - 2])
+                d = torch.minimum(d, torch.where(tmatch, prev2[j - 2] + tw,
+                                                 big))
+            row[j] = d
+        out = torch.where(a_len == i, row.gather(0, b_len[None])[0], out)
+        prev2, prev1 = prev1, row
+    return out

@@ -12,12 +12,18 @@ import pytest
 import torch
 
 from repro_torch import kernels as tk
+from repro_torch.core import sketch as tsk
+from repro_torch.core import spelling
 from repro_torch.core.decay import DecayConfig
 from repro_torch.core.engine import EngineConfig, SearchAssistanceEngine
+from repro_torch.core.hashing import fingerprint, join_fp
+from repro_torch.core.spelling import encode_strings, spelling_cycle
+from repro_torch.core.stores import export_live
 from repro_torch.data.stream import StreamConfig, SyntheticStream
 from repro_torch.kernels import ref
 from repro_torch.kernels.assoc_score import assoc_score, score_body
 from repro_torch.kernels.decay_prune import decay_prune_multi
+from repro_torch.kernels.edit_distance import edit_distance
 from repro_torch.kernels.region_probe import chain_find
 from repro_torch.kernels.topk_select import bucket_topk, decay_exp2, \
     region_rank, score_gate
@@ -206,6 +212,81 @@ def test_assoc_score_cuda_matches_plain(cuda):
     assert tk.LAUNCHES["assoc_score"] == before + 1
     torch.testing.assert_close(got, score_body(*lanes, *sc, COEFS),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fc", [1.0, 1.5])
+@pytest.mark.parametrize("L", [16, 24])
+def test_edit_distance_cuda_matches_plain(cuda, L, fc):
+    rng = np.random.default_rng(L)
+    rand = lambda n, k: "".join(chr(97 + c) for c in rng.integers(0, k, n))
+    pairs = [(rand(rng.integers(0, L + 1), k), rand(rng.integers(0, L + 1), k))
+             for k in (2, 3, 6) for _ in range(3000)]
+    full = rand(L, 4)
+    pairs += [("", ""), ("", full), (full, ""), (full, full),
+              (full, full[::-1]), ("justin bieber", "justin beiber"),
+              ("same", "same"), (rand(L, 2), rand(L, 2))]
+    A, B = zip(*pairs)
+    ac, al = encode_strings(list(A), L)
+    bc, bl = encode_strings(list(B), L)
+    args = [torch.from_numpy(x).to(cuda) for x in (ac, al, bc, bl)]
+    before = tk.LAUNCHES["edit_distance"]
+    got = edit_distance(*args, first_char_cost=fc)
+    assert tk.LAUNCHES["edit_distance"] == before + 1
+    exp = ref.edit_distance_ref(*args, first_char_cost=fc)
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    d = got[-8:].tolist()
+    assert d[0] == 0.0 and d[3] == 0.0 and d[6] == 0.0
+    assert d[1] == d[2] == fc + (L - 1)
+
+
+def test_edit_distance_wrapper_refuses_bad_inputs(cuda):
+    lens = torch.zeros(4, dtype=torch.int32, device=cuda)
+    wide = torch.zeros((4, 33), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        edit_distance(wide, lens, wide, lens)
+    chars = torch.zeros((4, 24), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="uint8"):
+        edit_distance(chars, lens, chars, lens)
+    chars = torch.zeros((4, 24), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        edit_distance(chars, lens.long(), chars, lens.long())
+
+
+def test_spelling_and_sketch_on_card_match_cpu(cuda, monkeypatch):
+    """The spelling job over the live qstore of the small engine plus
+    planted misspellings, and a sketch, on the card and on the CPU."""
+    exp = export_live(_run("cpu").state.qstore)
+    stream = SyntheticStream(StreamConfig(**STREAM), seed=11)
+    fps = join_fp(exp["key_hi"], exp["key_lo"])
+    texts = [stream.tok.text(int(f)) for f in fps]
+    planted = ["justin bieber", "justin beiber", "hadoop", "hadop",
+               "lady gaga", "lady gagga"]
+    fps = np.concatenate([fps, np.array([fingerprint(t) for t in planted],
+                                        np.uint64)])
+    texts += planted
+    weights = np.concatenate([exp["weight"], np.float32([900, 5, 800, 4,
+                                                         700, 2])])
+    tk.reset_launches()
+    monkeypatch.setattr(spelling, "BLOCK_CELLS", 1 << 14)   # several blocks
+    got = spelling_cycle(fps, texts, weights, device=cuda)
+    assert tk.LAUNCHES["edit_distance"] > 1, tk.LAUNCHES
+    cpu = spelling_cycle(fps, texts, weights, device="cpu")
+    assert list(got.items()) == list(cpu.items())
+    assert got[fingerprint("hadop")][0] == fingerprint("hadoop")
+
+    rng = np.random.default_rng(5)
+    hi = rng.integers(0, 2**32, 3000, dtype=np.uint32)
+    lo = rng.integers(0, 2**32, 3000, dtype=np.uint32)
+    w = np.floor(rng.random(3000) * 8).astype(np.float32)
+    valid = rng.random(3000) < 0.9
+    q = []
+    for dev in (cuda, "cpu"):
+        sk = tsk.make_sketch(4, 1 << 10, device=dev)
+        args = [_t(x, dev) for x in (hi, lo)]
+        sk = tsk.sketch_decay(tsk.sketch_update(
+            sk, *args, _t(w, dev), _t(valid, dev)), 0.5)
+        q.append((sk.table.cpu(), tsk.sketch_query(sk, *args).cpu()))
+    assert torch.equal(q[0][0], q[1][0]) and torch.equal(q[0][1], q[1][1])
 
 
 def _run(device, n_ticks=9, lazy=False, layout="hash"):

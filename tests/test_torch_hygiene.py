@@ -76,10 +76,15 @@ def _make_region_table(**kw):
                              {"weight": torch.float32}, **kw).region_owner
 
 
+def _make_sketch(**kw):
+    from repro_torch.core.sketch import make_sketch
+    return make_sketch(2, 1 << 8, **kw).table
+
+
 @pytest.mark.parametrize("make", [_init_state, _make_cooc_store, _make_table,
                                   _make_session_table,
                                   _make_region_cooc_store,
-                                  _make_region_table],
+                                  _make_region_table, _make_sketch],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_state_constructors_default_to_cuda_and_refuse_without_it(
         monkeypatch, make):
@@ -89,3 +94,14 @@ def test_state_constructors_default_to_cuda_and_refuse_without_it(
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
     assert make(device="cpu").device.type == "cpu"
+
+
+def test_spelling_cycle_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    import numpy as np
+    from repro_torch.core.spelling import spelling_cycle
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    texts = ["hadoop", "hadop"]
+    args = (np.array([1, 2], np.uint64), texts, np.array([9.0, 1.0]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spelling_cycle(*args)
+    assert spelling_cycle(*args, device="cpu") == {2: (1, 1.0)}

@@ -12,7 +12,7 @@ from repro.kernels.decay_prune import decay_prune_multi as j_decay_prune_multi
 from repro.kernels.topk_select import bucket_topk as j_bucket_topk
 from repro.kernels.topk_select import score_gate as j_score_gate
 from repro_torch import kernels as tk
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 from repro_torch.kernels.assoc_score import assoc_score
 from repro_torch.kernels.decay_prune import decay_prune_multi
 from repro_torch.kernels.region_probe import chain_find
@@ -187,6 +187,9 @@ def test_cpu_route_uses_plain_version_and_counts_nothing():
                torch.ones(3, dtype=torch.int32),
                torch.ones(3, dtype=torch.int32), torch.ones(3, dtype=bool))
     assoc_score(*([z[0]] * 6), 1.0, 1.0, coefs=COEFS)
+    chars = torch.zeros((3, 24), dtype=torch.uint8)
+    lens = torch.ones(3, dtype=torch.int32)
+    assert ops.edit_distance(chars, lens, chars, lens).tolist() == [0.0] * 3
     assert tk.LAUNCHES == {name: 0 for name in tk.KERNELS}
     assert tk.route(torch.zeros(1)) == "plain"
     with pytest.raises(RuntimeError):
@@ -203,6 +206,6 @@ def test_missing_nvcc_raises(monkeypatch):
 def test_kernel_sources_and_library_names():
     stems = {p.stem for p in build.sources()}
     assert stems == {"decay_prune", "score_gate", "bucket_topk", "chain_find",
-                     "region_rank", "assoc_score"}
+                     "region_rank", "assoc_score", "edit_distance"}
     names = {build.library_path(p).name for p in build.sources()}
-    assert len(names) == 6
+    assert len(names) == 7
