@@ -14,14 +14,21 @@ Phases, each of which must pass:
      (its bare launch into preallocated outputs), the wrapper's, the plain
      version's and the library call's time (CUDA events, median of 20
      after warm-up); and the least time the card could take (HBM bytes
-     at 3.35 TB/s or operations at 67 TFLOP/s f32, whichever is larger).
+     at 3.35 TB/s or operations at 67 TFLOP/s f32, whichever is larger;
+     for ``flash_attention`` its in-band FLOPs at the 989 TFLOP/s bf16
+     tensor-core peak and its exponentials at the SFU rate).
      ``edit_distance`` runs on the largest pair batch of an untimed run of
-     the phase-4 spelling job;
+     the phase-4 spelling job, ``flash_attention`` on layer 0's q/k/v from
+     the phase-6 scoring forward (bf16, B 4, T 8192; the twin row by row),
+     plus an f32 case at T 2048; its library column is SDPA with the band
+     as mask, and the kernels SDPA ran are printed;
   3. the engine on the card against the engine on the CPU at a small size
      (state under the parity contract, suggestions), under both cooc
      layouts (hash: sweep policy; region: sweep and lazy policies); the
      spelling job and the count-min sketch on the card against the CPU
-     (the small engine's qstore plus planted misspellings);
+     (the small engine's qstore plus planted misspellings); the LM's
+     danube, granite and qwen3 SMOKE models (f32) on the card against the
+     CPU: forward, prefill and 4 decode steps;
   4. the main paths at deployment scale — ``SearchAssistanceEngine.step``
      for 17 ticks (4 decay sweeps, 2 rank cycles), once with the hash cooc
      layout and once with the region layout, each with its kernels'
@@ -34,8 +41,18 @@ Phases, each of which must pass:
      misspellings that are live and corrected to their true form; then 256
      sources re-solved over all candidates with the plain version;
   5. determinism — the same stream twice gives bit-identical state, under
-     each layout, and the spelling job twice gives the same corrections in
-     the same order.
+     each layout, the spelling job twice gives the same corrections in
+     the same order, and two scoring forwards give bit-identical logits;
+  6. the LM serving path — h2o-danube-1.8b at its published widths and
+     depth, bf16, random weights from a seed: the scoring forward over 4
+     requests of 8192 tokens (24 ``flash_attention`` launches, counts set
+     to 0 just before and read just after; wall ms, tokens/s, peak
+     memory); prefill of the same prompts into ring caches and 16 greedy
+     decode steps (ms, peak memory, flash launches: 0); one kernel forward
+     over prompt + decoded tokens (T 8208) whose logits must match the
+     prefill's last chunk and every decode step; then the model in f32
+     (TF32 off), B 1: prefill and 4 decode steps against the kernel
+     forward at a bound a bf16 computation fails.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -44,6 +61,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -54,6 +72,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# Exponentials: 16 a clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz
+# maximum boost clock (data sheet).
+EXP_PER_S = 16 * 132 * 1.98e9
 SEED = 0
 # ~1 ms of device sleep at the H100's clock: queued before a timed call so
 # the host's launch work hides under it and the events time the device.
@@ -880,6 +903,363 @@ def two_runs_bit_identical(dev, ticks, layout) -> None:
         f"bit-identical")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the LM serving path (h2o-danube-1.8b at its published widths).
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "h2o-danube-1.8b"
+LM_BATCH, LM_SEQ, LM_DECODE = 4, 8192, 16
+# Agreement of prefill/decode with the kernel forward, in logits.
+# bf16: 8 significant bits, 2^-9 relative per rounding. The two runs round
+# at different places (kernel vs plain attention; matmuls over 8208 rows,
+# 4096-row chunks or one row) at ~6 sites a layer over 24 layers;
+# independent roundings add in quadrature, sqrt(144) x 2^-9 = 2.3% relative
+# RMS expected, bounded here at 5%. Logits are ~N(0, 1) (unit-RMS final
+# norm, head std 1/sqrt(d)): 2.3% RMS puts 6 sigma over 5e8 logits at
+# ~0.14, bounded at 0.5. A wrong cache slot, position or chunk moves logits
+# by O(1) and fails both; a mask off by one key of 4096 moves them by
+# ~1/4096, which is the f32 check's and the CPU tests' to catch.
+LM_BF16_REL_RMS, LM_BF16_MAX_ABS = 0.05, 0.5
+# f32 (TF32 off): ~1e-5 relative at worst from sums in another order, so
+# ~1e-4 on logits of |x| <= 5. Rounding the logits alone to bf16 errs by up
+# to 2^-9 x 4 = 8e-3, and a bf16 computation by ~2e-2 RMS: both fail.
+LM_F32_MAX_ABS = 1e-3
+# bf16 kernel vs twin: both round an f32 result to bf16 once (one ulp
+# apart at a rounding boundary, 2^-8 relative), plus 1e-5 near 0.
+FA_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
+FA_F32_TOL = dict(rtol=2e-4, atol=2e-4)   # JAX's bar, tests/test_kernels.py
+
+
+def band_pairs(Tq: int, Tk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs inside the causal/window band of one head."""
+    import numpy as np
+    qpos = np.arange(Tq, dtype=np.int64) + (Tk - Tq)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else 0
+    hi = np.minimum(Tk, qpos + 1) if causal else Tk
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_bound(q, k, causal: bool, window: int):
+    """Least time for one flash_attention call: the larger of its bytes (q,
+    k, v read once, o written once) at the HBM rate and its work, counted
+    over the in-band pairs only: 4D FLOPs a pair (q.k and p.v) at the bf16
+    tensor-core peak, and one exponential a pair at the SFU rate.
+    Returns (ms, "bytes" | "operations", the bounding term, all terms)."""
+    B, Hq, Tq, D = q.shape
+    pairs = band_pairs(Tq, k.shape[2], causal, window) * B * Hq
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "tensor-core FLOPs": 4 * D * pairs / BF16_TC_OPS_PER_S * 1e3,
+             "exponentials": pairs / EXP_PER_S * 1e3}
+    which = max(terms, key=terms.get)
+    return (terms[which], "bytes" if which == "bytes" else "operations",
+            which, dict(terms, pairs=pairs))
+
+
+def _logit_gap(got, exp):
+    """(relative RMS, max abs, top-1 agreement) of two [B, T, V] logit
+    tensors, one batch row at a time in f32."""
+    sq = ref_sq = mx = 0.0
+    same = n = 0
+    for g, e in zip(got, exp):
+        g, e = g.float(), e.float()
+        d = g - e
+        sq += float((d * d).sum())
+        ref_sq += float((e * e).sum())
+        mx = max(mx, float(d.abs().max()))
+        same += int((g.argmax(-1) == e.argmax(-1)).sum())
+        n += g.shape[0]
+    return (sq / ref_sq) ** 0.5, mx, same / n
+
+
+def lm_scoring(model, cfg, tokens):
+    """The scoring forward twice: first untimed, capturing layer 0's q/k/v
+    as the kernel receives them; then timed, with the launch counts set to
+    0 just before and read just after. Returns (logits, launches, wall ms,
+    peak GiB, captured (q, k, v), whether the two are bit-identical)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    captured = []
+    kernel_call = ops.flash_attention
+
+    def capture(q, k, v, causal=True, window=0):
+        if not captured:
+            captured.append((q, k, v))
+        return kernel_call(q, k, v, causal, window)
+
+    ops.flash_attention = capture
+    try:
+        first = tr.forward(model, tokens, cfg)[0]
+    finally:
+        ops.flash_attention = kernel_call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    logits = tr.forward(model, tokens, cfg)[0]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return (logits, launches, wall_ms, peak, captured[0],
+            torch.equal(first, logits))
+
+
+def lm_serving(dev, model, cfg, tokens, n_decode, profile_step=False):
+    """Prefill the prompts into fresh caches, then ``n_decode`` greedy
+    decode steps, with the launch counts set to 0 just before; with
+    ``profile_step``, one more (untimed, unchecked) step under the
+    profiler. Returns
+    (prefill logits, decode logits [B, n, V], the tokens fed to the decode
+    steps [B, n], prefill ms, per-step ms, launches, peak GiB)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.models import transformer as tr
+    B, T = tokens.shape
+    caches = tr.init_caches(cfg, B, T + n_decode, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    pre, caches = tr.prefill(model, tokens, cfg, caches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    nxt = pre[:, -1].argmax(-1, keepdim=True).int()
+    fed, outs, step_ms = [], [], []
+    for _ in range(n_decode):
+        fed.append(nxt)
+        t0 = time.perf_counter()
+        lg, caches = tr.decode_step(model, nxt, cfg, caches)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg)
+        nxt = lg.argmax(-1, keepdim=True).int()
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool((caches["pos"] == T + n_decode).all()):
+        raise AssertionError("cache positions do not count the tokens")
+    if profile_step:
+        _profiled("decode step", lambda: tr.decode_step(model, nxt, cfg,
+                                                         caches))
+    return (pre, torch.stack(outs, 1), torch.cat(fed, 1), prefill_ms,
+            step_ms, launches, peak)
+
+
+def lm_agreement(model, cfg, tokens, pre, dec, fed, max_abs, rel_rms=None):
+    """One kernel forward over prompt + fed tokens (ragged on purpose); its
+    logits over the prefill's last chunk and at each decode position must
+    match the served ones."""
+    import torch
+    from repro_torch.models import transformer as tr
+    T, n = tokens.shape[1], fed.shape[1]
+    full = tr.forward(model, torch.cat([tokens, fed], 1), cfg)[0]
+    chunk = pre.shape[1]
+    for name, got, exp in (("prefill", pre, full[:, T - chunk:T]),
+                           ("decode", dec, full[:, T:T + n])):
+        rms, mx, top1 = _logit_gap(got, exp)
+        log(f"  {name} vs kernel forward over {T + n} tokens "
+            f"({got.shape[1]} positions): rel RMS {rms!r}, max abs {mx!r} "
+            f"(bounds: rel RMS {rel_rms}, max abs {max_abs}), top-1 "
+            f"agreement {top1!r}")
+        if mx > max_abs or (rel_rms is not None and rms > rel_rms) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} disagrees with the kernel forward")
+
+
+def check_flash_attention(q, k, v, window: int):
+    """flash_attention on the scoring forward's layer-0 q/k/v (bf16), held
+    against its twin one batch row at a time (a row's f32 scores are
+    [Hq, T, T]), then an f32 case at a quarter of T. Times: the bare launch,
+    the twin row by row (summed) and SDPA with the band as its mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, launch
+    B, Hq, T, D = q.shape
+    got = flash_attention(q, k, v, causal=True, window=window)
+    err = 0.0
+    for b in range(B):
+        exp = ref.flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                      causal=True, window=window)
+        torch.testing.assert_close(got[b:b + 1].float(), exp.float(),
+                                   **FA_BF16_TOL)
+        err = max(err, float((got[b:b + 1].float() - exp.float()).abs().max()))
+        del exp
+    log(f"  flash_attention bf16 q {list(q.shape)}, k/v {list(k.shape)}, "
+        f"window {window}: max_abs_err {err!r} (tolerance {FA_BF16_TOL}: "
+        f"both round an f32 result to bf16 once)")
+    q32, k32, v32 = (t[:1, :, :T // 4].float() for t in (q, k, v))
+    got32 = flash_attention(q32, k32, v32, causal=True, window=window)
+    exp32 = ref.flash_attention_ref(q32, k32, v32, causal=True,
+                                    window=window)
+    torch.testing.assert_close(got32, exp32, **FA_F32_TOL)
+    log(f"  flash_attention f32 q {list(q32.shape)}: max_abs_err "
+        f"{float((got32 - exp32).abs().max())!r} (tolerance {FA_F32_TOL}, "
+        f"JAX's bar)")
+    del q32, k32, v32, got32, exp32
+    scale = ref.attention_scale(D)
+    out = torch.empty_like(q)
+    ms = time_ms(lambda: launch(q, k, v, out, True, window, scale))
+    wrapper_ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                 window=window))
+    plain_ms = sum(time_ms(lambda: ref.flash_attention_ref(
+        q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True, window=window),
+        reps=5, warmup=1) for b in range(B))
+    qpos = torch.arange(T, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    band = (kpos <= qpos) & (kpos > qpos - window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
+    library_ms = time_ms(sdpa)
+    gap = float((sdpa().float() - got.float()).abs().max())
+    log(f"  SDPA (library yardstick, timed only): {library_ms!r} ms, max abs "
+        f"gap to the kernel {gap!r}; each fused backend alone: "
+        f"{json.dumps(sdpa_backends(sdpa))}")
+    _profiled("SDPA", sdpa)
+    b_ms, b_by, which, terms = attention_bound(q, k, True, window)
+    log(f"  flash_attention bound by {which}: {json.dumps(terms)}")
+    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def sdpa_backends(fn):
+    """ms of ``fn`` (an SDPA call) with each fused backend alone, to tell
+    which one the default call took; a backend that refuses the inputs
+    raises RuntimeError and is reported as refused. The math backend is
+    not tried: its [B, H, T, T] scores would not fit."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        with sdpa_kernel(backend):
+            try:
+                out[backend.name] = time_ms(fn)
+            except RuntimeError as e:
+                out[backend.name] = "refused: " + str(e).splitlines()[0][:80]
+    return out
+
+
+def small_lm(dev) -> None:
+    """Phase 3 for the LM: each SMOKE model (f32, TF32 off) on the card
+    against the same weights on the CPU: the forward (kernel against twin),
+    then prefill of 64 tokens and 4 greedy decode steps; logits within
+    1e-4 (f32 sums in another order)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("h2o-danube-1.8b", "granite-3-8b", "qwen3-8b"):
+        cfg = get_arch(arch).smoke_config
+        cpu = tr.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                             device="cpu")
+        card = tr.init_params(cfg,
+                              generator=torch.Generator().manual_seed(SEED),
+                              device="cpu").to(dev)
+        toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        pairs = [(tr.forward(card, toks.to(dev), cfg)[0],
+                  tr.forward(cpu, toks, cfg)[0])]
+        caches = [tr.init_caches(cfg, 2, 68, device=d) for d in (dev, "cpu")]
+        gl, caches[0] = tr.prefill(card, toks.to(dev), cfg, caches[0])
+        cl, caches[1] = tr.prefill(cpu, toks, cfg, caches[1])
+        pairs.append((gl, cl))
+        nxt = cl[:, -1:].argmax(-1).int()
+        for _ in range(4):
+            gl, caches[0] = tr.decode_step(card, nxt.to(dev), cfg, caches[0])
+            cl, caches[1] = tr.decode_step(cpu, nxt, cfg, caches[1])
+            pairs.append((gl, cl))
+            nxt = cl.argmax(-1, keepdim=True).int()
+        err = 0.0
+        for g, c in pairs:
+            torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+            err = max(err, float((g.cpu() - c).abs().max()))
+        log(f"  {arch} SMOKE, card vs CPU: forward, prefill and 4 decode "
+            f"steps, max abs logit error {err!r} (tolerance 1e-4)")
+
+
+def run_lm(dev, rows):
+    """Phase 6 (with the LM's parts of phases 2 and 5): h2o-danube-1.8b at
+    its published widths and depth, bf16, random weights from a seeded
+    generator on the card. Returns the scoring forward's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH).config
+    B, T, n_dec = LM_BATCH, LM_SEQ, LM_DECODE
+    t0 = time.perf_counter()
+    model = tr.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[6] LM serving path: {cfg}, {n_params} parameters "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        logits, launches, wall, peak, (q, k, v), same = lm_scoring(
+            model, cfg, tokens)
+        missing = [n for n in tk.PATH_KERNELS["lm"] if launches[n] <= 0]
+        if missing or launches["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"scoring forward launches {launches}")
+        if logits.shape != (B, T, cfg.padded_vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("scoring logits not finite or misshapen")
+        log(f"  scoring forward: {B} x {T} tokens in {wall!r} ms "
+            f"({B * T / wall * 1e3!r} tokens/s), peak {peak!r} GiB, "
+            f"flash_attention launches {launches['flash_attention']}")
+        if not same:
+            raise AssertionError("two scoring forwards differ")
+        log("[5] determinism: two scoring forwards give bit-identical logits")
+        del logits
+        _profiled("scoring forward", lambda: tr.forward(model, tokens, cfg))
+        pre, dec, fed, pre_ms, step_ms, s_launches, s_peak = lm_serving(
+            dev, model, cfg, tokens, n_dec, profile_step=True)
+        log(f"  serving: prefill {B} x {T} in chunks of "
+            f"{cfg.window or T}: {pre_ms!r} ms; {n_dec} decode steps, ms "
+            f"each {step_ms!r} (median {statistics.median(step_ms)!r}); "
+            f"peak {s_peak!r} GiB; flash_attention launches "
+            f"{s_launches['flash_attention']} (prefill and decode read the "
+            f"cache in plain torch)")
+        lm_agreement(model, cfg, tokens, pre, dec, fed, LM_BF16_MAX_ABS,
+                     LM_BF16_REL_RMS)
+        del pre, dec
+        torch.cuda.empty_cache()
+        log("[2] flash_attention at the scoring forward's layer-0 shapes")
+        rows["flash_attention"] = check_flash_attention(q, k, v, cfg.window)
+        log(f"  flash_attention at its main-path shape: "
+            f"{json.dumps(rows['flash_attention'])}")
+        del q, k, v
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"[6] f32: allow_tf32 matmul "
+            f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
+            f"{torch.backends.cudnn.allow_tf32}; B=1, T={T}, prefill and 4 "
+            f"decode steps against the kernel forward")
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model = model.float()
+        pre, dec, fed, _, _, _, _ = lm_serving(dev, model, cfg32,
+                                               tokens[:1], 4)
+        lm_agreement(model, cfg32, tokens[:1], pre, dec, fed,
+                     LM_F32_MAX_ABS)
+    del model
+    torch.cuda.empty_cache()
+    log(f"  LM phases took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -938,6 +1318,10 @@ def main() -> int:
     small_spelling(dev, small_parity(dev)[1])
     small_parity(dev, "region")
     small_parity(dev, "region", lazy=True)
+    t0 = time.perf_counter()
+    log("[3] LM SMOKE models on the card vs the CPU")
+    small_lm(dev)
+    log(f"  LM SMOKE parity took {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. main paths at deployment scale ----
     from repro_torch.data.stream import SyntheticStream
@@ -979,7 +1363,6 @@ def main() -> int:
     rows["chain_find"] = check_chain_find(table, batch, dev)
     log(f"  chain_find at its main-path shape: "
         f"{json.dumps(rows['chain_find'])}")
-    log("kernels " + " ".join(f"{n}=ok" for n in rows))
     del table, batch
     torch.cuda.empty_cache()
 
@@ -987,13 +1370,19 @@ def main() -> int:
     two_runs_bit_identical(dev, ticks, "hash")
     two_runs_bit_identical(dev, ticks, "region")
 
+    # ---- 6. the LM serving path at full width ----
+    launches["lm"] = run_lm(dev, rows)
+    log("kernels " + " ".join(f"{n}=ok" for n in rows))
+
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),
                "score_gate": ("score_gate.cu", "topk_select.py:78"),
                "bucket_topk": ("bucket_topk.cu", "topk_select.py:150"),
                "chain_find": ("chain_find.cu", "region_probe.py:50"),
                "region_rank": ("region_rank.cu", "topk_select.py:236"),
                "assoc_score": ("assoc_score.cu", "assoc_score.py:81"),
-               "edit_distance": ("edit_distance.cu", "edit_distance.py:107")}
+               "edit_distance": ("edit_distance.cu", "edit_distance.py:107"),
+               "flash_attention": ("flash_attention.cu",
+                                   "flash_attention.py:86")}
     record = {"kernels": [
         {"name": n, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{sources[n][0]}",

@@ -31,12 +31,15 @@ Kernel sites::
     core/ranking.ranking_cycle_region (grid)   ops.region_rank          region_rank.cu
     core/ranking.ranking_cycle_region (merge)  ops.bucket_topk          bucket_topk.cu
     core/spelling.spelling_cycle               ops.edit_distance        edit_distance.cu
+    models/layers.attention (cache-free)       ops.flash_attention      flash_attention.cu
     (no engine caller)                         assoc_score.assoc_score  assoc_score.cu
 
 The hash layout's path runs ``decay_prune_multi``, ``score_gate`` and
 ``bucket_topk``; the region layout's runs ``decay_prune_multi`` (the
 qstore sweep), ``chain_find``, ``region_rank`` and ``bucket_topk``
-(:data:`PATH_KERNELS`). The spelling job runs ``edit_distance``.
+(:data:`PATH_KERNELS`). The spelling job runs ``edit_distance``; the LM's
+cache-free forward runs ``flash_attention`` once per layer (its prefill
+and decode go through the KV cache in plain torch, as in JAX).
 """
 from __future__ import annotations
 
@@ -45,14 +48,16 @@ from typing import Dict
 import torch
 
 KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk", "chain_find",
-           "region_rank", "assoc_score", "edit_distance")
+           "region_rank", "assoc_score", "edit_distance", "flash_attention")
 
-# The kernels each cooc layout's main path, and the spelling job, launch.
+# The kernels each cooc layout's main path, the spelling job and the LM's
+# scoring forward launch.
 PATH_KERNELS = {
     "hash": ("decay_prune_multi", "score_gate", "bucket_topk"),
     "region": ("decay_prune_multi", "chain_find", "region_rank",
                "bucket_topk"),
     "spelling": ("edit_distance",),
+    "lm": ("flash_attention",),
 }
 
 # Launch counts per kernel: incremented only where a wrapper launches its

@@ -12,6 +12,8 @@ import torch
 
 from . import decay_prune as _dp
 from . import edit_distance as _ed
+from . import flash_attention as _fa
+from . import ref
 from . import region_probe as _rp
 from . import topk_select as _tk
 
@@ -99,3 +101,29 @@ def edit_distance(a_chars, a_len, b_chars, b_len, *,
     """Batched weighted OSA edit distance (the spelling job's pairs)."""
     return _ed.edit_distance(a_chars, a_len, b_chars, b_len,
                              first_char_cost=float(first_char_cost))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through the plain
+    version under autograd (the JAX ``custom_vjp`` does the same: no
+    backward kernel exists)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(q, k, v, causal=ctx.causal,
+                                          window=ctx.window)
+        return (*torch.autograd.grad(out, (q, k, v), g), None, None)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Causal / sliding-window / GQA attention, q [B, Hq, Tq, D], k/v
+    [B, Hkv, Tk, D] (the LM's cache-free forward)."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))

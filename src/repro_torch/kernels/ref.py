@@ -168,3 +168,35 @@ def edit_distance_ref(a_chars, a_len, b_chars, b_len, first_char_cost=1.5):
         out = torch.where(a_len == i, row.gather(0, b_len[None])[0], out)
         prev2, prev1 = prev1, row
     return out
+
+
+def attention_scale(head_dim: int) -> float:
+    """``1 / sqrt(D)`` computed in f32, as the JAX reference computes it."""
+    return float(torch.tensor(float(head_dim)).sqrt().reciprocal())
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """q: [B, Hq, Tq, D]; k/v: [B, Hkv, Tk, D]; GQA via Hq % Hkv == 0.
+
+    ``window > 0`` keeps the keys with ``kpos > qpos - window``. Query rows
+    are end-aligned (``qpos = i + Tk - Tq``). Scores, softmax and ``P @ V``
+    run in f32; returns [B, Hq, Tq, D] in ``q.dtype``. A row with no valid
+    key (causal with Tq > Tk) is NaN, as in the JAX reference.
+    """
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    kf = k.repeat_interleave(rep, dim=1).float()
+    vf = v.repeat_interleave(rep, dim=1).float()
+    scale = attention_scale(D) if scale is None else float(scale)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    logits.masked_fill_(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)

@@ -1,0 +1,215 @@
+"""Dense causal LM: GQA / sliding-window / qk-norm, forward, prefill and
+decode. Port of the dense half of the JAX package's ``models/transformer.py``.
+
+The JAX ``lax.scan`` over stacked block parameters becomes a loop over an
+``nn.ModuleList`` of blocks; the stacked caches stay stacked (a leading
+layer dim) and each layer updates its slice in place. Matmuls run in the
+config dtype, softmax and norms accumulate in f32. The cache-free forward
+runs attention through ``ops.flash_attention``: the hand-written kernel on
+CUDA, its plain version on the CPU.
+
+Not ported yet (ROADMAP Queue 1 item 14): mixture-of-experts blocks
+(``models/moe.py``), ``loss_fn``, the sharding rules and rematerialisation,
+which belong to the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.stores import resolve_device
+from . import kv_cache as kvc
+from .layers import (Attention, AttentionConfig, SwiGLU, attention,
+                     init_linear, param, rms_norm, swiglu)
+
+MOE_PENDING = ("mixture-of-experts LMs are not ported yet (models/moe.py, "
+               "ROADMAP Queue 1 item 14)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    window: int = 0                   # sliding-window attention width
+    rope_theta: float = 10000.0
+    moe: Optional[Any] = None         # not ported: raises where it is read
+    dtype: str = "bfloat16"
+    remat: str = "full"               # read by the training slice (not yet)
+    tie_embeddings: bool = False
+    scan_unroll: int = 1              # JAX scan unroll; no effect here
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def attn(self) -> AttentionConfig:
+        return AttentionConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.hd,
+            qk_norm=self.qk_norm, window=self.window,
+            rope_theta=self.rope_theta, causal=True)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding/head rows padded to 256; padded logits are masked to
+        -1e30 (never selected)."""
+        return ((self.vocab_size + 255) // 256) * 256
+
+    def param_count(self) -> int:
+        """Total parameters (N for MODEL_FLOPS = 6*N*D)."""
+        d, hd = self.d_model, self.hd
+        attn = d * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.moe:
+            ff = 3 * d * self.moe.d_ff * self.moe.n_experts + d * self.moe.n_experts
+            if self.moe.n_shared_experts:
+                ff += 3 * d * self.moe.shared_d_ff * self.moe.n_shared_experts + d
+        else:
+            ff = 3 * d * self.d_ff
+        norms = 2 * d
+        per_layer = attn + ff + norms
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    def __init__(self, cfg: LMConfig, device, gen=None):
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.ln_attn = param(torch.ones(cfg.d_model, dtype=dt, device=device))
+        self.ln_ffn = param(torch.ones(cfg.d_model, dtype=dt, device=device))
+        self.attn = Attention(cfg.attn, dt, device, gen)
+        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dt, device, gen)
+
+
+class LM(nn.Module):
+    """embed [Vp, d], blocks, norm_f [d], lm_head [d, Vp] (untied)."""
+
+    def __init__(self, cfg: LMConfig, device, gen=None):
+        super().__init__()
+        if cfg.moe:
+            raise NotImplementedError(MOE_PENDING)
+        dt, d, vp = cfg.torch_dtype, cfg.d_model, cfg.padded_vocab
+        self.embed = init_linear(gen, vp, d, dt, device, scale=0.02)
+        self.blocks = nn.ModuleList(Block(cfg, device, gen)
+                                    for _ in range(cfg.n_layers))
+        self.norm_f = param(torch.ones(d, dtype=dt, device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = init_linear(gen, d, vp, dt, device)
+
+
+def init_params(cfg: LMConfig, *, generator: torch.Generator,
+                device="cuda") -> LM:
+    """Random parameters with the JAX ``init_params`` distributions: embed
+    N(0, 0.02^2), linear weights N(0, 1/d_in), lm_head N(0, 1/d), norms 1.
+    ``generator`` must live on ``device``; the numbers differ from JAX's."""
+    return LM(cfg, resolve_device(device), generator)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _block_apply(block: Block, x, positions, cfg: LMConfig,
+                 cache: Optional[Dict]):
+    h, cache = attention(block.attn, rms_norm(x, block.ln_attn), cfg.attn,
+                         positions, cache)
+    x = x + h
+    return x + swiglu(block.ffn, rms_norm(x, block.ln_ffn)), cache
+
+
+def _layer_cache(caches: Dict, i: int) -> Dict:
+    return {name: t[i] for name, t in caches.items()}
+
+
+def forward(params: LM, tokens, cfg: LMConfig, *, positions=None,
+            caches: Optional[Dict] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict], float]:
+    """tokens: [B, T] -> (logits [B, T, Vp], caches, aux_loss). With
+    ``caches`` each layer reads and writes its slice in place; the same
+    dict is returned. ``aux_loss`` is 0.0 (dense blocks)."""
+    if cfg.moe:
+        raise NotImplementedError(MOE_PENDING)
+    B, T = tokens.shape
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=tokens.device).expand(B, T)
+    x = params.embed[tokens].to(cfg.torch_dtype)
+    for i, block in enumerate(params.blocks):
+        cache = None if caches is None else _layer_cache(caches, i)
+        x, _ = _block_apply(block, x, positions, cfg, cache)
+    x = rms_norm(x, params.norm_f)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = x @ head
+    if cfg.padded_vocab != cfg.vocab_size:   # mask padded vocab rows
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
+    return logits, caches, 0.0
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: LMConfig, batch: int, max_len: int,
+                device="cuda") -> Dict:
+    """Stacked caches: k/v [L, B, W or max_len, Hkv, D], pos [L, B],
+    window [L]."""
+    one = kvc.init_cache(batch, max_len, cfg.n_kv_heads, cfg.hd,
+                         cfg.torch_dtype, window=cfg.window,
+                         device=resolve_device(device))
+    return {name: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
+            for name, t in one.items()}
+
+
+def prefill(params: LM, tokens, cfg: LMConfig, caches: Dict):
+    """Run the prompt through the model, filling the caches. [B, T] tokens.
+
+    Sliding-window models chunk the prompt to the window size (a ring cache
+    absorbs at most W tokens per update without overwriting keys that the
+    same call's queries still need). Returns the last chunk's logits.
+    """
+    B, T = tokens.shape
+    chunk = cfg.window if cfg.window > 0 else T
+    if T <= chunk:
+        logits, caches, _ = forward(params, tokens, cfg, caches=caches)
+        return logits, caches
+    if T % chunk:
+        raise ValueError(f"prompt {T} not a multiple of window {chunk}")
+    logits = None
+    for i in range(T // chunk):
+        seg = tokens[:, i * chunk:(i + 1) * chunk]
+        pos = torch.arange(i * chunk, (i + 1) * chunk, dtype=torch.int32,
+                           device=tokens.device).expand(B, chunk)
+        logits, caches, _ = forward(params, seg, cfg, positions=pos,
+                                    caches=caches)
+    return logits, caches
+
+
+def decode_step(params: LM, tokens, cfg: LMConfig, caches: Dict):
+    """One new token per sequence. tokens: [B, 1] -> (logits [B, Vp],
+    caches)."""
+    # layer 0's positions [B, 1], copied: the layers advance pos in place
+    pos = caches["pos"][0][:, None].clone()
+    logits, caches, _ = forward(params, tokens, cfg, positions=pos,
+                                caches=caches)
+    return logits[:, -1], caches

@@ -1,6 +1,7 @@
 """The PyTorch port on a CUDA card: each CUDA kernel against its plain
 version, the engine on the card against the engine on the CPU under both
-cooc layouts, and bit-identical state across two runs on the card.
+cooc layouts, bit-identical state across two runs on the card, and the
+LM's SMOKE models on the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips it where there is no
 card (the CPU test run). This file imports neither JAX nor the JAX package,
@@ -24,6 +25,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.assoc_score import assoc_score, score_body
 from repro_torch.kernels.decay_prune import decay_prune_multi
 from repro_torch.kernels.edit_distance import edit_distance
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.region_probe import chain_find
 from repro_torch.kernels.topk_select import bucket_topk, decay_exp2, \
     region_rank, score_gate
@@ -332,3 +334,104 @@ def test_two_runs_on_card_are_bit_identical(cuda, layout):
     b = _run(cuda, layout=layout).state_arrays()
     for i in range(len(a)):
         assert a[f"leaf_{i}"].tobytes() == b[f"leaf_{i}"].tobytes(), i
+
+
+# (B, Hq, Hkv, Tq, Tk, D, causal, window): the JAX package's sweep
+# (tests/test_kernels.py), then the LM configs' head dims, ragged T, a
+# window wider than T and Hq == Hkv.
+FA_SHAPES = [
+    (2, 4, 2, 64, 64, 32, True, 0),
+    (1, 8, 8, 128, 128, 16, True, 16),
+    (2, 4, 1, 1, 64, 32, True, 0),
+    (1, 2, 2, 37, 61, 8, False, 0),
+    (1, 4, 2, 96, 96, 64, True, 32),
+    (2, 32, 8, 300, 300, 80, True, 128),
+    (1, 8, 2, 257, 257, 128, True, 0),
+    (1, 4, 2, 131, 200, 80, True, 0),
+    (1, 4, 4, 100, 100, 16, True, 4096),
+    (2, 4, 4, 65, 65, 48, False, 16),
+]
+
+
+@pytest.mark.parametrize("shape", FA_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_matches_plain(cuda, shape, dtype):
+    """f32 within JAX's 2e-4 (sums in another order); bf16 within 2^-7
+    relative (both round an f32 result to bf16 once: one ulp apart at a
+    rounding boundary) plus 1e-5 for values near 0. q/k/v are [B, H, T, D]
+    views of [B, T, H, D] tensors, as the model hands them over."""
+    B, Hq, Hkv, Tq, Tk, D, causal, window = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape[:6]))
+    q = torch.randn((B, Tq, Hq, D), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, Tk, Hkv, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    before = tk.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=1e-5)
+    torch.testing.assert_close(got.float(), exp.float(), **tol)
+    contiguous = flash_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal,
+                                 window=window)
+    assert torch.equal(contiguous, got)
+
+
+def test_flash_attention_wrapper_refuses_bad_inputs(cuda):
+    q = torch.zeros((1, 4, 8, 16), device=cuda)
+    kv = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="all bfloat16 or all float32"):
+        flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="all bfloat16 or all float32"):
+        flash_attention(q.half(), kv.half(), kv.half())
+    for d in (12, 136):
+        qd = torch.zeros((1, 4, 8, d), device=cuda)
+        kd = torch.zeros((1, 2, 8, d), device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(qd, kd, kd)
+    with pytest.raises(ValueError, match="no valid key"):
+        flash_attention(q, kv[:, :, :4], kv[:, :, :4], causal=True)
+    with pytest.raises(ValueError, match="multiple of KV heads"):
+        flash_attention(q, kv[:, :1].expand(1, 3, 8, 16).contiguous(),
+                        kv[:, :1].expand(1, 3, 8, 16).contiguous())
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "granite-3-8b",
+                                  "qwen3-8b"])
+def test_lm_smoke_on_card_matches_cpu(cuda, arch):
+    """The SMOKE model (f32) on the card against the same weights on the
+    CPU: the forward (kernel against twin), then prefill of 64 tokens and 4
+    greedy decode steps, logits within 1e-4 (f32 sums in another order;
+    TF32 off)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).smoke_config
+    cpu = tr.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    card = tr.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu").to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    tk.reset_launches()
+    got = tr.forward(card, toks.to(cuda), cfg)[0]
+    assert tk.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), tr.forward(cpu, toks, cfg)[0],
+                               **tol)
+    caches = {d: tr.init_caches(cfg, 2, 68, device=d) for d in ("cpu", cuda)}
+    gl, caches[cuda] = tr.prefill(card, toks.to(cuda), cfg, caches[cuda])
+    cl, caches["cpu"] = tr.prefill(cpu, toks, cfg, caches["cpu"])
+    for _ in range(4):
+        torch.testing.assert_close(gl.cpu(), cl, **tol)
+        nxt = cl[:, -1:].argmax(-1).int() if cl.dim() == 3 else \
+            cl.argmax(-1, keepdim=True).int()
+        gl, caches[cuda] = tr.decode_step(card, nxt.to(cuda), cfg,
+                                          caches[cuda])
+        cl, caches["cpu"] = tr.decode_step(cpu, nxt, cfg, caches["cpu"])
+    torch.testing.assert_close(gl.cpu(), cl, **tol)
+    assert tk.LAUNCHES["flash_attention"] == cfg.n_layers

@@ -81,10 +81,44 @@ def _make_sketch(**kw):
     return make_sketch(2, 1 << 8, **kw).table
 
 
+def _smoke_lm():
+    from repro_torch.configs import get_arch
+    return get_arch("h2o-danube-1.8b").smoke_config
+
+
+def _init_params(**kw):
+    from repro_torch.models.transformer import init_params
+    gen = torch.Generator()
+    return init_params(_smoke_lm(), generator=gen, **kw).embed
+
+
+def _init_caches(**kw):
+    from repro_torch.models.transformer import init_caches
+    return init_caches(_smoke_lm(), 2, 32, **kw)["k"]
+
+
+def _make_inputs(**kw):
+    import numpy as np
+    from repro_torch.models.api import ShapeCell, make_inputs
+    cell = ShapeCell("p", "prefill", {"batch": 2, "seq": 16})
+    return make_inputs(np.random.default_rng(0), _smoke_lm(), cell,
+                       **kw)["tokens"]
+
+
+def _params_from_jax(**kw):
+    from repro_torch.models.convert import params_from_jax, params_to_numpy
+    from repro_torch.models.transformer import init_params
+    tree = params_to_numpy(init_params(_smoke_lm(), generator=torch.Generator(),
+                                       device="cpu"))
+    return params_from_jax(tree, _smoke_lm(), **kw).lm_head
+
+
 @pytest.mark.parametrize("make", [_init_state, _make_cooc_store, _make_table,
                                   _make_session_table,
                                   _make_region_cooc_store,
-                                  _make_region_table, _make_sketch],
+                                  _make_region_table, _make_sketch,
+                                  _init_params, _init_caches, _make_inputs,
+                                  _params_from_jax],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_state_constructors_default_to_cuda_and_refuse_without_it(
         monkeypatch, make):

@@ -190,6 +190,9 @@ def test_cpu_route_uses_plain_version_and_counts_nothing():
     chars = torch.zeros((3, 24), dtype=torch.uint8)
     lens = torch.ones(3, dtype=torch.int32)
     assert ops.edit_distance(chars, lens, chars, lens).tolist() == [0.0] * 3
+    q = torch.ones((1, 4, 8, 16))
+    kv = torch.ones((1, 2, 8, 16))
+    assert torch.equal(ops.flash_attention(q, kv, kv, True, 4), q)
     assert tk.LAUNCHES == {name: 0 for name in tk.KERNELS}
     assert tk.route(torch.zeros(1)) == "plain"
     with pytest.raises(RuntimeError):
@@ -206,6 +209,7 @@ def test_missing_nvcc_raises(monkeypatch):
 def test_kernel_sources_and_library_names():
     stems = {p.stem for p in build.sources()}
     assert stems == {"decay_prune", "score_gate", "bucket_topk", "chain_find",
-                     "region_rank", "assoc_score", "edit_distance"}
+                     "region_rank", "assoc_score", "edit_distance",
+                     "flash_attention"}
     names = {build.library_path(p).name for p in build.sources()}
-    assert len(names) == 7
+    assert len(names) == 8
