@@ -1,9 +1,11 @@
 """Flash attention forward: causal, sliding-window, GQA.
 
 Port of the JAX package's ``kernels/flash_attention.py``. On CUDA tensors
-:func:`flash_attention` launches ``csrc/flash_attention.cu`` (one block per
-64-row q tile, K/V tiles of the causal/window band only, online softmax in
-f32); on CPU tensors it runs the plain version ``ref.flash_attention_ref``.
+:func:`flash_attention` launches ``csrc/flash_attention.cu``, which visits
+the K/V tiles of the causal/window band only with an online softmax in f32:
+bf16 on the tensor cores (wgmma, K/V by TMA; P is rounded to bf16 before
+P.V, as on any tensor-core attention), f32 on the CUDA cores. On CPU
+tensors it runs the plain version ``ref.flash_attention_ref``.
 
 Causal attention with ``Tq > Tk`` raises on both routes: its first rows have
 no valid key, where the JAX reference gives NaN and the Pallas kernel the
@@ -54,6 +56,18 @@ def _check(q, k, v, causal: bool) -> None:
                          "first rows would have no valid key")
 
 
+def _check_tma(t: torch.Tensor, what: str) -> None:
+    """The bf16 kernel reads and writes through TMA tensor maps: 16-byte
+    aligned base, and b/h/t strides of dims longer than 1 in 16 bytes."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: base address not 16-byte aligned")
+    for dim, name in ((0, "b"), (1, "h"), (2, "t")):
+        nbytes = t.stride(dim) * t.element_size()
+        if t.shape[dim] > 1 and nbytes % 16:
+            raise ValueError(f"{what}: {name}-stride of {nbytes} bytes is not "
+                             "a multiple of 16 (TMA)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: float | None = None) -> torch.Tensor:
@@ -61,8 +75,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``window > 0`` keeps keys with ``kpos > qpos - window``; query rows are
     end-aligned. The CUDA kernel takes bf16 or f32, D a multiple of 8 up to
-    128, any b/h/t strides with a contiguous last dim; the output has q's
-    layout (``torch.empty_like``).
+    128, any b/h/t strides with a contiguous last dim (bf16: base addresses
+    and the strides of dimensions longer than 1 multiples of 16 bytes, as
+    TMA needs); the output has q's layout (``torch.empty_like``).
     """
     _check(q, k, v, causal)
     D = q.shape[3]
@@ -77,6 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if t.stride(3) != 1:
             raise ValueError(f"{what}: need a contiguous last dim")
+        if t.dtype == torch.bfloat16:
+            _check_tma(t, what)
     out = torch.empty_like(q)
     launch(q, k, v, out, causal, window, scale)
     return out
