@@ -18,7 +18,11 @@ Phases, each of which must pass:
      for ``flash_attention`` its in-band FLOPs at the 989 TFLOP/s bf16
      tensor-core peak and its exponentials at the SFU rate).
      ``edit_distance`` runs on the largest pair batch of an untimed run of
-     the phase-4 spelling job, ``flash_attention`` on layer 0's q/k/v from
+     the phase-4 spelling job, on both kernel routes with the same pairs
+     (the job's first_char_cost 1.5 on the half-unit DPX route, 1.3 on
+     the f32 route; each bit-equal to the plain version, its ms, % of
+     bound, cells/us and ``-Xptxas -v`` lines printed; the half-unit route
+     must be the faster), ``flash_attention`` on layer 0's q/k/v from
      the phase-6 scoring forward (bf16, B 4, T 8192; the twin row by row),
      plus an f32 case at T 2048; its library column is SDPA with the band
      as mask, and the kernels SDPA ran are printed; the bf16 kernel (tensor
@@ -38,10 +42,11 @@ Phases, each of which must pass:
      out, no drops on the hash path (region drops are printed). After the
      hash path, the spelling job over its 17-tick qstore, as the serving
      loop runs it (export, join_fp, tok.text, ``spelling_cycle``), with
-     ``edit_distance``'s launches counted the same way: sources, filtered
-     pairs, wall time, corrections, peak memory, the stream's planted
-     misspellings that are live and corrected to their true form; then 256
-     sources re-solved over all candidates with the plain version;
+     ``edit_distance``'s launches counted the same way (all on the
+     half-unit route): sources, filtered pairs, wall time, corrections,
+     peak memory, the stream's planted misspellings that are live and
+     corrected to their true form; then 256 sources re-solved over all
+     candidates with the plain version;
   5. determinism — the same stream twice gives bit-identical state, under
      each layout, the spelling job twice gives the same corrections in
      the same order, and two scoring forwards give bit-identical logits;
@@ -411,35 +416,71 @@ def check_bucket_topk(R: int, L: int, K: int, dev):
                 library_ms=library_ms)
 
 
-ED_OPS_PER_CELL = 7   # f32 adds and mins per DP cell
+ED_OPS_PER_CELL = 7   # f32 adds and mins per DP cell, the bound's yardstick
+ED_FC_F32 = 1.3       # a first-character cost only the f32 route takes
 
 
 def check_edit_distance(batch, fc: float):
-    """edit_distance on the largest pair batch of the spelling job, held
-    bit for bit against the plain version. The bound counts the cells
-    these pairs fill (a_len x b_len each)."""
+    """edit_distance on the largest pair batch of the spelling job, on both
+    kernel routes with the same pairs: the job's cost ``fc`` (half-unit
+    route) and ``ED_FC_F32`` (f32 route), each held bit for bit against
+    the plain version and timed by its bare launch. The bound counts the
+    cells these pairs fill (a_len x b_len each) at ED_OPS_PER_CELL f32
+    operations, on both routes. Fails unless the half-unit route is
+    faster."""
     import torch
+    from repro_torch.kernels import edit_distance as ked
     from repro_torch.kernels import ref
-    from repro_torch.kernels.edit_distance import edit_distance, launch
     ac, al, bc, bl = batch
     B, L = ac.shape
-    got = edit_distance(ac, al, bc, bl, first_char_cost=fc)
-    exp = ref.edit_distance_ref(ac, al, bc, bl, first_char_cost=fc)
-    if not torch.equal(got.view(torch.int32), exp.view(torch.int32)):
-        raise AssertionError("edit_distance differs from the plain version")
     cells = int((al.long() * bl.long()).sum())
-    log(f"  edit_distance: {B} pairs, L={L}, first_char_cost={fc}, "
-        f"{cells} DP cells ({cells / max(B, 1):.1f} a pair)")
-    out = torch.empty_like(got)
-    ms = time_ms(lambda: launch(ac, al, bc, bl, out, fc))
-    wrapper_ms = time_ms(lambda: edit_distance(ac, al, bc, bl,
-                                               first_char_cost=fc))
+    b_ms, b_by = bound(B * (2 * L + 8 + 4), cells * ED_OPS_PER_CELL)
+    log(f"  edit_distance: {B} pairs, L={L}, {cells} DP cells "
+        f"({cells / max(B, 1):.1f} a pair), bound {b_ms} ms ({b_by})")
+    if ked.kernel_route(fc) != "half":
+        raise AssertionError(f"the job's first_char_cost {fc} does not take "
+                             f"the half-unit route")
+    out = torch.empty((B,), dtype=torch.float32, device=ac.device)
+    by_route = {}
+    for cost in (fc, ED_FC_F32):
+        kroute = ked.kernel_route(cost)
+        before = dict(ked.ROUTE_LAUNCHES)
+        got = ked.edit_distance(ac, al, bc, bl, first_char_cost=cost)
+        n_route = ked.ROUTE_LAUNCHES[kroute] - before[kroute]
+        if n_route != 1:
+            raise AssertionError(f"edit_distance fc {cost}: {n_route} "
+                                 f"launches on the {kroute} route")
+        exp = ref.edit_distance_ref(ac, al, bc, bl, first_char_cost=cost)
+        if not torch.equal(got.view(torch.int32), exp.view(torch.int32)):
+            raise AssertionError(f"edit_distance ({kroute} route, fc "
+                                 f"{cost}) differs from the plain version")
+        ms = time_ms(lambda: ked.launch(ac, al, bc, bl, out, cost))
+        by_route[kroute] = dict(fc=cost, ms=ms,
+                                max_abs_err=float((got - exp).abs().max()))
+        del got, exp
+        log(f"  edit_distance {kroute} route (first_char_cost={cost}): "
+            f"{n_route} launch on it, bit-equal to the plain version, "
+            f"{ms} ms, "
+            f"{100 * b_ms / ms:.2f}% of bound, {cells / ms / 1e3:.1f} "
+            f"cells/us")
+        for line in ptxas_report("edit_distance", f"ed_{kroute}_kernel"):
+            log(f"    ptxas: {line}")
+    half, f32 = by_route["half"], by_route["f32"]
+    if not half["ms"] < f32["ms"]:
+        raise AssertionError(f"edit_distance: the half-unit route "
+                             f"({half['ms']} ms) is not faster than the f32 "
+                             f"route ({f32['ms']} ms)")
+    log(f"  edit_distance: half-unit route {f32['ms'] / half['ms']:.2f}x "
+        f"faster than the f32 route on the same pairs")
+    wrapper_ms = time_ms(lambda: ked.edit_distance(ac, al, bc, bl,
+                                                   first_char_cost=fc))
     plain_ms = time_ms(lambda: ref.edit_distance_ref(ac, al, bc, bl, fc),
                        reps=3, warmup=1)
-    b_ms, b_by = bound(B * (2 * L + 8 + 4), cells * ED_OPS_PER_CELL)
-    return dict(max_abs_err=float((got - exp).abs().max()), ms=ms,
+    return dict(max_abs_err=half["max_abs_err"], ms=half["ms"],
                 wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None, kernel_route="half",
+                f32_route_ms=f32["ms"],
+                f32_route_max_abs_err=f32["max_abs_err"])
 
 
 # ---------------------------------------------------------------------------
@@ -749,9 +790,11 @@ def run_spelling(dev, qstore, stream):
     import torch
     from repro_torch import kernels as tk
     from repro_torch.core.spelling import SpellConfig, scan_order
+    from repro_torch.kernels import edit_distance as ked
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats, times = {}, {}
+    by_route = dict(ked.ROUTE_LAUNCHES)
     tk.reset_launches()
     t0 = time.perf_counter()
     fps, texts, weights, corr = spelling_job(dev, qstore, stream.tok, stats,
@@ -759,11 +802,15 @@ def run_spelling(dev, qstore, stream):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(tk.LAUNCHES)
+    by_route = {r: n - by_route[r] for r, n in ked.ROUTE_LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     missing = [n for n in tk.PATH_KERNELS["spelling"] if launches[n] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the spelling job: "
                              f"{missing}")
+    if by_route["half"] != launches["edit_distance"]:
+        raise AssertionError(f"the spelling job's edit_distance launches "
+                             f"by route: {by_route}")
     if not corr:
         raise AssertionError("the spelling job emitted no correction")
     t0 = time.perf_counter()
@@ -777,6 +824,7 @@ def run_spelling(dev, qstore, stream):
     row = {"sources": stats["sources"], "pairs_filtered": stats["pairs"],
            "blocks": stats["blocks"], "largest_batch": stats["largest_batch"],
            "edit_distance_launches": launches["edit_distance"],
+           "edit_distance_route_launches": by_route,
            "wall_ms": wall_ms, **times, "corrections": len(corr),
            "peak_mem_gib": peak, "planted_variants": len(planted),
            "planted_variants_live": len(planted_live),

@@ -21,6 +21,7 @@ from repro_torch.core.hashing import fingerprint, join_fp
 from repro_torch.core.spelling import encode_strings, spelling_cycle
 from repro_torch.core.stores import export_live
 from repro_torch.data.stream import StreamConfig, SyntheticStream
+from repro_torch.kernels import edit_distance as ked
 from repro_torch.kernels import ref
 from repro_torch.kernels.assoc_score import assoc_score, score_body
 from repro_torch.kernels.decay_prune import decay_prune_multi
@@ -216,29 +217,85 @@ def test_assoc_score_cuda_matches_plain(cuda):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("fc", [1.0, 1.5])
-@pytest.mark.parametrize("L", [16, 24])
+ED_ROUTE = {1.0: "half", 1.5: "half", 1.3: "f32"}
+
+
+def _edit_distance_on_card(cuda, args, fc):
+    """The wrapper on the card, checked for one launch on fc's route and
+    held bit for bit against the plain version."""
+    route = ED_ROUTE[fc]
+    assert ked.kernel_route(fc) == route
+    before, by_route = tk.LAUNCHES["edit_distance"], dict(ked.ROUTE_LAUNCHES)
+    got = edit_distance(*args, first_char_cost=fc)
+    assert tk.LAUNCHES["edit_distance"] == before + 1
+    assert ked.ROUTE_LAUNCHES[route] == by_route[route] + 1
+    exp = ref.edit_distance_ref(*args, first_char_cost=fc)
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("fc", [1.0, 1.5, 1.3])
+@pytest.mark.parametrize("L", [16, 24, 32])
 def test_edit_distance_cuda_matches_plain(cuda, L, fc):
     rng = np.random.default_rng(L)
     rand = lambda n, k: "".join(chr(97 + c) for c in rng.integers(0, k, n))
     pairs = [(rand(rng.integers(0, L + 1), k), rand(rng.integers(0, L + 1), k))
              for k in (2, 3, 6) for _ in range(3000)]
     full = rand(L, 4)
-    pairs += [("", ""), ("", full), (full, ""), (full, full),
+    # an odd count: the half route's last thread has an empty high lane
+    pairs += [("", "a"), ("", ""), ("", full), (full, ""), (full, full),
               (full, full[::-1]), ("justin bieber", "justin beiber"),
               ("same", "same"), (rand(L, 2), rand(L, 2))]
+    assert len(pairs) % 2 == 1
     A, B = zip(*pairs)
     ac, al = encode_strings(list(A), L)
     bc, bl = encode_strings(list(B), L)
     args = [torch.from_numpy(x).to(cuda) for x in (ac, al, bc, bl)]
-    before = tk.LAUNCHES["edit_distance"]
-    got = edit_distance(*args, first_char_cost=fc)
-    assert tk.LAUNCHES["edit_distance"] == before + 1
-    exp = ref.edit_distance_ref(*args, first_char_cost=fc)
-    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    got = _edit_distance_on_card(cuda, args, fc)
     d = got[-8:].tolist()
     assert d[0] == 0.0 and d[3] == 0.0 and d[6] == 0.0
-    assert d[1] == d[2] == fc + (L - 1)
+    # row 0 of the table, fc + (L - 1) in f32
+    assert d[1] == d[2] == float(np.float32(fc) + np.float32(L - 1))
+    assert not torch.signbit(got).any()
+
+
+@pytest.mark.parametrize("fc", [1.5, 1.3])
+def test_edit_distance_cuda_source_major_batch(cuda, fc):
+    """Pairs as the spelling job makes them: each source against every
+    candidate within 2 of its length, source-major."""
+    rng = np.random.default_rng(17)
+    words = list(dict.fromkeys(
+        "".join(chr(97 + c) for c in rng.integers(0, 8, n))
+        for n in rng.integers(4, 25, 3000)))
+    ch, ln = encode_strings(words, 24)
+    src = rng.choice(len(words), 40, replace=False)
+    near = np.abs(ln[src, None] - ln[None, :]) <= 2
+    aa, bb = np.nonzero(near)
+    aa = src[aa]
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (ch[aa], ln[aa], ch[bb], ln[bb])]
+    got = _edit_distance_on_card(cuda, args, fc).cpu().numpy()
+    assert (got[aa == bb] == 0).all() and (got[aa != bb] > 0).all()
+
+
+@pytest.mark.parametrize("fc", [1.5, 1.3])
+def test_edit_distance_cuda_unaligned_base(cuda, fc):
+    """Strings and lengths at bases off their alignment, as slices of
+    larger tensors: computed right."""
+    rng = np.random.default_rng(3)
+    n, L = 5001, 24
+    ac, bc = (rng.integers(97, 101, (n, L), dtype=np.uint8) for _ in "ab")
+    al, bl = (rng.integers(0, L + 1, n).astype(np.int32) for _ in "ab")
+    def shifted(x, off):
+        flat = torch.zeros(x.size + off, dtype=torch.from_numpy(x).dtype,
+                           device=cuda)
+        flat[off:] = torch.from_numpy(x.reshape(-1)).to(cuda)
+        out = flat[off:].view(x.shape)
+        assert out.is_contiguous()
+        return out
+    args = [shifted(ac, 1), shifted(al, 1), shifted(bc, 7), shifted(bl, 3)]
+    assert args[0].data_ptr() % 16 == 1
+    _edit_distance_on_card(cuda, args, fc)
 
 
 def test_edit_distance_wrapper_refuses_bad_inputs(cuda):
