@@ -22,7 +22,16 @@ Phases, each of which must pass:
      (the job's first_char_cost 1.5 on the half-unit DPX route, 1.3 on
      the f32 route; each bit-equal to the plain version, its ms, % of
      bound, cells/us and ``-Xptxas -v`` lines printed; the half-unit route
-     must be the faster), ``flash_attention`` on layer 0's q/k/v from
+     must be the faster). ``bucket_topk`` runs on both kernel routes (the
+     wrapper's row route, one thread a row, and the warp route forced
+     through its bare launch) with the same grid, each equal to the plain
+     version in values and every column: a synthetic 4,194,304 x 64 grid
+     (K 8, half -inf, heavy ties; ms, % of bound, rows/us and
+     ``-Xptxas -v`` lines printed; the row route must be the faster), and
+     the main paths' own grids at their last rank cycle from untimed
+     replays of their ticks (the hash bucket grid, with the rows that hold
+     a finite value counted, and the region chain merge's candidates).
+     ``flash_attention`` runs on layer 0's q/k/v from
      the phase-6 scoring forward (bf16, B 4, T 8192; the twin row by row),
      plus an f32 case at T 2048; its library column is SDPA with the band
      as mask, and the kernels SDPA ran are printed; the bf16 kernel (tensor
@@ -38,7 +47,8 @@ Phases, each of which must pass:
   4. the main paths at deployment scale — ``SearchAssistanceEngine.step``
      for 17 ticks (4 decay sweeps, 2 rank cycles), once with the hash cooc
      layout and once with the region layout, each with its kernels'
-     launch counts set to 0 just before and read just after; suggestions
+     launch counts set to 0 just before and read just after (every
+     ``bucket_topk`` launch on its row route); suggestions
      out, no drops on the hash path (region drops are printed). After the
      hash path, the spelling job over its 17-tick qstore, as the serving
      loop runs it (export, join_fp, tok.text, ``spelling_cycle``), with
@@ -387,33 +397,96 @@ def check_chain_find(table, batch, dev):
                 library_ms=None)
 
 
+def topk_bound(R: int, L: int, K: int):
+    """bucket_topk's bound: the grid read once, K values and K columns
+    written per row; its K rounds of L compares as operations."""
+    return bound(R * L * 4 + R * K * 8, R * L * K)
+
+
+def bucket_topk_routes(label: str, grid, K: int):
+    """bucket_topk on ``grid`` through both kernel routes: the wrapper
+    (which must take the row route) and the warp route forced through its
+    bare launch. Each is held against the plain version (values, and every
+    column with its sentinels) and timed by its bare launch. Returns
+    {route: ms}."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_select as ktk
+    R, L = grid.shape
+    if ktk.kernel_route(K) != "row":
+        raise AssertionError(f"bucket_topk K={K} does not take the row route")
+    ev, ea = ref.bucket_topk_ref(grid, K)
+    before = dict(ktk.ROUTE_LAUNCHES)
+    vals, args = ktk.bucket_topk(grid, K)
+    if ktk.ROUTE_LAUNCHES["row"] != before["row"] + 1:
+        raise AssertionError("bucket_topk's wrapper did not take the row "
+                             "route")
+    bv, ba = torch.empty_like(vals), torch.empty_like(args)
+    ktk.launch_bucket_topk(grid, bv, ba, "warp")
+    for kroute, (v, a) in (("row", (vals, args)), ("warp", (bv, ba))):
+        if not (torch.equal(v, ev) and torch.equal(a, ea)):
+            raise AssertionError(f"bucket_topk ({kroute} route, {label}) "
+                                 f"differs from the plain version")
+    del vals, args
+    b_ms, b_by = topk_bound(R, L, K)
+    ms = {}
+    for kroute in ("row", "warp"):
+        ms[kroute] = time_ms(
+            lambda: ktk.launch_bucket_topk(grid, bv, ba, kroute))
+        log(f"  bucket_topk {kroute} route, {label} ({R}x{L}, K={K}): "
+            f"equal to the plain version (values, columns, sentinels), "
+            f"{ms[kroute]!r} ms, {100 * b_ms / ms[kroute]:.2f}% of bound "
+            f"({b_ms!r} ms, {b_by}), {R / ms[kroute] / 1e3:.1f} rows/us")
+    log(f"  bucket_topk {label}: the wrapper took the row route; row "
+        f"route {ms['warp'] / ms['row']:.2f}x faster than the warp route")
+    return ms
+
+
 def check_bucket_topk(R: int, L: int, K: int, dev):
-    """bucket_topk against the plain version: vals equal, args equal where
-    vals > -inf; torch.topk timed beside it as the library yardstick."""
+    """bucket_topk's two routes against the plain version on a synthetic
+    grid (half -inf, many ties), with torch.topk timed beside them as the
+    library yardstick; fails unless the row route is the faster."""
     import numpy as np
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.topk_select import bucket_topk, launch_bucket_topk
+    from repro_torch.kernels.topk_select import bucket_topk
     rng = np.random.default_rng(SEED + 2)
     g = np.floor(rng.random((R, L), dtype=np.float32) * 64)     # many ties
     g[rng.random((R, L)) < 0.5] = -np.inf
     grid = torch.from_numpy(g).to(dev)
     del g
-    vals, args = bucket_topk(grid, K)
-    ev, ea = ref.bucket_topk_ref(grid, K)
-    fin = ev > -torch.inf
-    if not (torch.equal(vals, ev) and torch.equal(args[fin], ea[fin])):
-        raise AssertionError("bucket_topk differs from the plain version")
-    err = float((vals[fin] - ev[fin]).abs().max())
-    bv, ba = torch.empty_like(vals), torch.empty_like(args)
-    ms = time_ms(lambda: launch_bucket_topk(grid, bv, ba))
+    ms = bucket_topk_routes("synthetic grid", grid, K)
+    for stem, entry in (("row", "bucket_topk_row_kernel"),
+                        ("warp", "bucket_topk_kernel")):
+        for line in ptxas_report("bucket_topk", entry):
+            log(f"    ptxas ({stem} route): {line}")
+    if not ms["row"] < ms["warp"]:
+        raise AssertionError(f"bucket_topk: the row route ({ms['row']} ms) "
+                             f"is not faster than the warp route "
+                             f"({ms['warp']} ms)")
     wrapper_ms = time_ms(lambda: bucket_topk(grid, K))
     plain_ms = time_ms(lambda: ref.bucket_topk_ref(grid, K))
     library_ms = time_ms(lambda: torch.topk(grid, K, dim=1))
-    b_ms, b_by = bound(R * L * 4 + R * K * 8, R * L * K)
-    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+    b_ms, b_by = topk_bound(R, L, K)
+    return dict(max_abs_err=0.0, ms=ms["row"], wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                kernel_route="row", warp_route_ms=ms["warp"])
+
+
+def check_bucket_topk_path_grid(label: str, grid, K: int):
+    """bucket_topk's two routes on a grid a main path passed it (from an
+    untimed replay): rows holding a finite value, each route against the
+    plain version, both timed; ``torch.topk`` beside them."""
+    import torch
+    R, L = grid.shape
+    n_live = int(torch.isfinite(grid).any(1).sum())
+    log(f"  bucket_topk {label}: {R}x{L}, K={K}, {n_live} rows hold a "
+        f"finite value ({100 * n_live / max(R, 1):.3f}%)")
+    ms = bucket_topk_routes(label, grid, K)
+    library_ms = time_ms(lambda: torch.topk(grid, K, dim=1))
+    b_ms, _ = topk_bound(R, L, K)
+    return dict(rows=R, width=L, rows_finite=n_live, row_ms=ms["row"],
+                warp_ms=ms["warp"], bound_ms=b_ms, library_ms=library_ms)
 
 
 ED_OPS_PER_CELL = 7   # f32 adds and mins per DP cell, the bound's yardstick
@@ -697,9 +770,12 @@ def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
     store as the timed ticks left it."""
     import torch
     from repro_torch import kernels as tk
+    from repro_torch.kernels import topk_select as ktk
     cfg, _ = deployment_config(layout)
     torch.cuda.reset_peak_memory_stats()
+    by_route = dict(ktk.ROUTE_LAUNCHES)
     eng, step_ms, cycle_ms, results, launches = main_path(dev, ticks, layout)
+    by_route = {r: n - by_route[r] for r, n in ktk.ROUTE_LAUNCHES.items()}
     st = eng.state
     q = st.qstore
     qstore = q._replace(key_hi=q.key_hi.clone(), key_lo=q.key_lo.clone(),
@@ -708,7 +784,11 @@ def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
              for n in ("qstore", "cooc", "sessions")}
     Q, C = cfg.query_capacity, cfg.cooc_capacity
     live_q, live_c = int(st.qstore.live_count()), int(st.cooc.live_count())
-    log(f"  {layout} launches on the main path: {launches}")
+    log(f"  {layout} launches on the main path: {launches}; bucket_topk "
+        f"by route {by_route}")
+    if by_route["row"] != launches["bucket_topk"]:
+        raise AssertionError(f"{layout} bucket_topk launches by route: "
+                             f"{by_route}")
     log(f"  {layout} n_dropped {drops}; live qstore {live_q}/{Q}, "
         f"cooc {live_c}/{C}")
     if layout == "region":
@@ -936,6 +1016,37 @@ def largest_chain_find_batch(dev, ticks):
     finally:
         kops.chain_find = chain_find
     return eng.state.cooc, largest["batch"]
+
+
+def last_bucket_topk_grid(dev, ticks, layout):
+    """An untimed replay of a main path's ticks that keeps what its last
+    bucket_topk call was given: the hash layout's [R, L] bucket grid or
+    the region layout's chain-merge candidates, at the last rank cycle.
+    Returns (grid, K, the tick of that rank cycle)."""
+    from repro_torch.core.engine import SearchAssistanceEngine
+    from repro_torch.kernels import ops as kops
+    cfg, _ = deployment_config(layout)
+    calls, ranked, last = [], [], {}
+    bucket_topk = kops.bucket_topk
+
+    def spy(grid, k):
+        calls.append(k)
+        last.update(grid=grid.clone(), k=k)
+        return bucket_topk(grid, k)
+
+    kops.bucket_topk = spy
+    try:
+        eng = SearchAssistanceEngine(cfg, device=dev)
+        for events, tweets in ticks:
+            res = eng.step(events, tweets)
+            if res:
+                ranked.append(res["tick"])
+    finally:
+        kops.bucket_topk = bucket_topk
+    if len(calls) != len(ranked) or not ranked:
+        raise AssertionError(f"{layout} replay: {len(calls)} bucket_topk "
+                             f"calls in {len(ranked)} rank cycles")
+    return last["grid"], last["k"], ranked[-1]
 
 
 def two_runs_bit_identical(dev, ticks, layout) -> None:
@@ -1451,6 +1562,19 @@ def main() -> int:
         f"{json.dumps(rows['chain_find'])}")
     del table, batch
     torch.cuda.empty_cache()
+    log("[2] bucket_topk at the main paths' own grids (untimed replays of "
+        "their ticks, the last rank cycle)")
+    path_grids = {}
+    for layout, what in (("hash", "hash bucket grid"),
+                         ("region", "region chain-merge candidates")):
+        grid, k, tick = last_bucket_topk_grid(dev, ticks, layout)
+        path_grids[layout] = check_bucket_topk_path_grid(
+            f"{what}, tick {tick}", grid, k)
+        log(f"  bucket_topk at the {layout} path's grid: "
+            f"{json.dumps(path_grids[layout])}")
+        del grid
+        torch.cuda.empty_cache()
+    rows["bucket_topk"]["path_grids"] = path_grids
 
     # ---- 5. determinism ----
     two_runs_bit_identical(dev, ticks, "hash")

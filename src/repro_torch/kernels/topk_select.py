@@ -3,7 +3,8 @@ region pass.
 
 Port of the JAX package's ``kernels/topk_select.py`` (``score_gate``,
 ``bucket_topk`` and ``region_rank``). On CUDA tensors the wrappers launch
-``csrc/score_gate.cu``, ``csrc/bucket_topk.cu`` and ``csrc/region_rank.cu``;
+``csrc/score_gate.cu``, ``csrc/bucket_topk.cu`` (on one of two routes,
+:func:`kernel_route`) and ``csrc/region_rank.cu``;
 on CPU tensors they run the plain versions in ``ref.py``. The kernels take
 any capacity and any row count, so the Pallas version's tile padding is
 gone.
@@ -11,7 +12,7 @@ gone.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +35,10 @@ def _bucket_topk_lib():
                                       ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_void_p]
+    lib.repro_bucket_topk_rows.restype = ctypes.c_int
+    lib.repro_bucket_topk_rows.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p] * 3)
     lib.repro_bucket_topk_max_width.restype = ctypes.c_int
     lib.repro_bucket_topk_max_width.argtypes = []
     return lib
@@ -124,15 +129,49 @@ def launch_score_gate(lanes, ok, lt_ptr, scalars, coefs, gates, half_life,
     LAUNCHES["score_gate"] += 1
 
 
+# bucket_topk's two kernel routes (csrc/bucket_topk.cu), chosen by K:
+# "row", one thread per row over a shared-memory tile, for K up to
+# ROW_MAX_K; "warp", one warp per row, for any K.
+ROW_MAX_K = 32
+ROW_KMAX = (8, 16, 32)          # the row kernel's list lengths
+ROW_TILE_ROWS = (128, 64)       # rows a block at L <= 64, at wider L
+SMEM_PER_BLOCK = 232448         # 227 KB of shared memory a block (sm_90)
+
+# Launches per kernel route, counted beside LAUNCHES["bucket_topk"].
+ROUTE_LAUNCHES: Dict[str, int] = {"row": 0, "warp": 0}
+
+
+def kernel_route(k: int) -> str:
+    """The CUDA kernel's route for top-``k``: ``"row"`` or ``"warp"``."""
+    return "row" if k <= ROW_MAX_K else "warp"
+
+
+def row_kmax(k: int) -> int:
+    """The row kernel's list length for top-``k``: the smallest of
+    ``ROW_KMAX`` at or above ``k``."""
+    return next(m for m in ROW_KMAX if m >= k)
+
+
+def row_tile(L: int) -> Tuple[int, int]:
+    """The row kernel's tile for rows ``L`` wide: (rows a block, stride in
+    floats). The stride is L rounded up to 4 floats, plus 4 where that
+    count of 16-byte chunks is even, so the 8 threads of a quarter-warp
+    reading their rows 16 bytes at a time hit distinct banks. The tile
+    takes ``rows * stride * 4`` bytes of shared memory."""
+    chunks = (L + 3) // 4
+    return ROW_TILE_ROWS[L > 64], 4 * (chunks | 1)
+
+
 def bucket_topk(grid: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of each row of ``grid`` f32[R, L]; the lowest column wins ties.
 
     Returns (vals f32[R, k], args i32[R, k]); rounds past a row's finite
     entries yield ``-inf`` and the sentinel column ``L``. The CUDA kernel
-    keeps a row in one warp's registers, so it raises for ``L`` above 128
-    (the engine's grid is ``max(bucket_rows, top_k)`` = 64 wide by default,
-    the region chain merge's ``max_chain * K1`` = 64).
+    takes the route :func:`kernel_route` names and raises for ``L`` above
+    128 (the engine's grid is ``max(bucket_rows, top_k)`` = 64 wide by
+    default, the region chain merge's ``max_chain * K1`` = 64). It takes
+    a contiguous grid at any base address.
     """
     if route(grid) == "plain":
         return ref.bucket_topk_ref(grid, k)
@@ -143,24 +182,38 @@ def bucket_topk(grid: torch.Tensor, k: int
     lib = _bucket_topk_lib()
     if L > lib.repro_bucket_topk_max_width():
         raise ValueError(f"bucket_topk: row width {L} exceeds the kernel's "
-                         f"{lib.repro_bucket_topk_max_width()} registers/row")
+                         f"{lib.repro_bucket_topk_max_width()}")
     vals = torch.empty((R, k), dtype=torch.float32, device=grid.device)
     args = torch.empty((R, k), dtype=torch.int32, device=grid.device)
     launch_bucket_topk(grid, vals, args)
     return vals, args
 
 
-def launch_bucket_topk(grid, vals, args) -> None:
-    """Launch the bucket_topk kernel into ``vals``/``args`` [R, k],
-    counting it. The bare launch under :func:`bucket_topk`, which checks
-    ``grid`` and allocates the outputs."""
-    (R, L), k = grid.shape, vals.shape[1]
-    code = _bucket_topk_lib().repro_bucket_topk(
-        grid.data_ptr(), R, L, int(k), vals.data_ptr(), args.data_ptr(),
-        torch.cuda.current_stream(grid.device).cuda_stream)
+def launch_bucket_topk(grid, vals, args, kroute: Optional[str] = None
+                       ) -> None:
+    """Launch the bucket_topk kernel into ``vals``/``args`` [R, k] on
+    ``kroute`` (default :func:`kernel_route`'s), counting it. The bare
+    launch under :func:`bucket_topk`, which checks ``grid`` and allocates
+    the outputs."""
+    (R, L), k = grid.shape, int(vals.shape[1])
+    kroute = kernel_route(k) if kroute is None else kroute
+    lib = _bucket_topk_lib()
+    ptrs = (grid.data_ptr(), R, L, k)
+    outs = (vals.data_ptr(), args.data_ptr(),
+            torch.cuda.current_stream(grid.device).cuda_stream)
+    if kroute == "row":
+        if k > ROW_MAX_K:
+            raise ValueError(f"bucket_topk: the row route takes k up to "
+                             f"{ROW_MAX_K}, not {k}")
+        code = lib.repro_bucket_topk_rows(*ptrs, row_kmax(k), *row_tile(L),
+                                          *outs)
+    elif kroute == "warp":
+        code = lib.repro_bucket_topk(*ptrs, *outs)
+    else:
+        raise ValueError(f"bucket_topk: no route {kroute!r}")
     check_launch(code, "bucket_topk")
     LAUNCHES["bucket_topk"] += 1
-
+    ROUTE_LAUNCHES[kroute] += 1
 
 
 def region_rank(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick, total_w,

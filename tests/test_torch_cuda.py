@@ -107,21 +107,47 @@ def test_score_gate_cuda_matches_plain(cuda, half_life):
     assert bool((~flips | near).all())
 
 
-@pytest.mark.parametrize("shape,k", [((4096, 64), 8), ((7, 40), 8),
-                                     ((33, 64), 16), ((5, 3), 6),
-                                     ((100, 128), 8), ((9, 100), 16)])
-def test_bucket_topk_cuda_matches_plain(cuda, shape, k):
+@pytest.mark.parametrize("shape,k,kind", [
+    ((4096, 64), 8, "ties"), ((7, 40), 8, "ties"), ((33, 64), 16, "ties"),
+    ((5, 3), 6, "ties"), ((100, 128), 8, "ties"), ((9, 100), 16, "ties"),
+    ((300, 64), 32, "ties"), ((300, 64), 33, "ties"),
+    ((1000, 128), 32, "ties"), ((70, 100), 33, "ties"),
+    ((20000, 64), 8, "sparse"), ((4099, 64), 8, "offset"),
+    ((257, 40), 6, "offset")])
+def test_bucket_topk_cuda_matches_plain(cuda, shape, k, kind):
+    """Both kernel routes (row for k <= 32, warp above) against the plain
+    version: values and every column, sentinels included; "sparse" rows
+    are >= 99% -inf as the hash path's grid, "offset" grids start 4 bytes
+    past a 16-byte boundary (a slice of a larger tensor)."""
+    from repro_torch.kernels import topk_select as ktk
     rng = np.random.default_rng(shape[0])
     g = np.floor(rng.random(shape).astype(np.float32) * 20)   # many ties
     g[rng.random(shape) < 0.3] = -np.inf
     g[0, :] = -np.inf
-    grid = torch.tensor(g, device=cuda)
+    if kind == "sparse":
+        g[rng.random(shape[0]) >= 0.01] = -np.inf
+    if kind == "offset":
+        flat = torch.empty(g.size + 1, dtype=torch.float32, device=cuda)
+        grid = flat[1:].view(shape)
+        grid.copy_(torch.from_numpy(g))
+        assert grid.is_contiguous() and grid.data_ptr() % 16 == 4
+    else:
+        grid = torch.tensor(g, device=cuda)
+    kroute = ktk.kernel_route(k)
+    assert kroute == ("row" if k <= 32 else "warp")
+    before, by_route = tk.LAUNCHES["bucket_topk"], dict(ktk.ROUTE_LAUNCHES)
     vals, args = bucket_topk(grid, k)
+    assert tk.LAUNCHES["bucket_topk"] == before + 1
+    assert ktk.ROUTE_LAUNCHES[kroute] == by_route[kroute] + 1
     ev, ea = ref.bucket_topk_ref(grid, k)
     assert torch.equal(vals, ev)
+    assert torch.equal(args, ea)
     fin = ev > -torch.inf
-    assert torch.equal(args[fin], ea[fin])
     assert bool((args[~fin] == shape[1]).all())
+    if kroute == "row":   # the warp route, forced, on the same grid
+        wv, wa = torch.empty_like(vals), torch.empty_like(args)
+        ktk.launch_bucket_topk(grid, wv, wa, "warp")
+        assert torch.equal(wv, ev) and torch.equal(wa, ea)
     with pytest.raises(ValueError):
         bucket_topk(torch.zeros((2, 129), device=cuda), 2)
 
