@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile-region-only [--root DIR]
 
 Phases, each of which must pass:
 
@@ -31,6 +32,19 @@ Phases, each of which must pass:
      the main paths' own grids at their last rank cycle from untimed
      replays of their ticks (the hash bucket grid, with the rows that hold
      a finite value counted, and the region chain merge's candidates).
+     ``chain_find`` prints its batch's active share and the 32-row groups
+     with no active row, its route, rows a warp, time, share of the bound,
+     the other load route's time (forced), the time at each rows-a-warp
+     and ``-Xptxas -v`` lines, then the same times on the run's other
+     batch size. ``region_rank`` runs on both kernel routes (the wrapper's
+     row route, gate first, and the warp route forced through its bare
+     launch), each held against the plain version, under both decay
+     policies: on a synthetic 131,072 x 128 grid (~71% of slots pass; the
+     row route must be the faster), with its ``-Xptxas -v`` lines and
+     static SASS counts beside assoc_score's; and on the region path's own
+     grid of its last rank cycle (an untimed replay). Both grids are timed
+     against the bytes that grid needs and against a yardstick that reads
+     every slot.
      ``flash_attention`` runs on layer 0's q/k/v from
      the phase-6 scoring forward (bf16, B 4, T 8192; the twin row by row),
      plus an f32 case at T 2048; its library column is SDPA with the band
@@ -75,9 +89,20 @@ The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
+
+``--profile-region-only`` runs none of the phases: it drives the region
+cell (its deployment configuration and stream, seed 0, 17 ticks) through
+the public engine API, then profiles one more ingest tick and one rank
+cycle as phase 4 does (wall, device time, the kernels that take it and
+each engine kernel's summed device time, ``chain_find`` and
+``region_rank`` among them). ``--root DIR`` takes the ``repro_torch``
+package from ``DIR/src``, where DIR lies inside this checkout (a parent
+commit unpacked with ``git archive`` under ``build/``), so one call on one
+card profiles two trees.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -278,18 +303,127 @@ def check_assoc_score(C: int, dev):
                 library_ms=None)
 
 
+def region_rank_routes(label, lanes, ok, lt, sc, K, half_life, gates,
+                       coefs):
+    """region_rank on one grid through both kernel routes: the wrapper
+    (which must take the row route) and the warp route forced through its
+    bare launch, each held against the plain version: npass, values and
+    columns equal, apart from rows where the lazy gate sits within 1 ulp of
+    min_pair_weight (counted and printed). Returns (max_abs_err, the
+    outputs' buffers, the plain npass)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_select as ktk
+    kw = dict(k=K, coefs=coefs, **gates)
+    if ktk.kernel_route(K) != "row":
+        raise AssertionError(f"region_rank K={K} does not take the row route")
+    before = dict(ktk.REGION_ROUTE_LAUNCHES)
+    vals, args, npass = ktk.region_rank(*lanes, ok, lt, *sc,
+                                        half_life=half_life, **kw)
+    if ktk.REGION_ROUTE_LAUNCHES["row"] != before["row"] + 1:
+        raise AssertionError("region_rank's wrapper did not take the row "
+                             "route")
+    bufs = (torch.empty_like(vals), torch.empty_like(args),
+            torch.empty_like(npass))
+    lt_ptr = None if half_life is None else lt.data_ptr()
+    ktk.launch_region_rank(lanes, ok, lt_ptr, torch.stack(sc), coefs,
+                           tuple(gates.values()), half_life, *bufs,
+                           kroute="warp")
+    w_eff = lanes[0]
+    if half_life is not None:
+        w_eff = ktk.decay_exp2(lanes[0], lt, sc[2], half_life)
+    ev, ea, en = ref.region_rank_ref(w_eff, *lanes[1:], ok, sc[0], sc[1],
+                                     **kw)
+    near = ((w_eff - gates["min_pair_weight"]).abs()
+            <= 2.0 ** -23 * 0.25).any(1)
+    err = 0.0
+    for kroute, (v, a, n) in (("row", (vals, args, npass)), ("warp", bufs)):
+        same = (n == en) & (v == ev).all(1) & (a == ea).all(1)
+        n_flip_rows = int((~same).sum())
+        if n_flip_rows != int((~same & near).sum()):
+            raise AssertionError(f"region_rank ({kroute} route, {label}) "
+                                 f"differs from the plain version away from "
+                                 f"the min_pair_weight boundary")
+        fin = (v > -torch.inf) & (ev > -torch.inf) & same[:, None]
+        e = float((v[fin] - ev[fin]).abs().max()) if bool(fin.any()) else 0.0
+        err = max(err, e)
+        log(f"  region_rank {kroute} route, {label}, half_life={half_life}: "
+            f"max_abs_err={e!r}, rows differing (gate within 1 ulp of "
+            f"min_pair_weight)={n_flip_rows} of {v.shape[0]}")
+    return err, bufs, en
+
+
+def time_region_rank_routes(lanes, ok, lt, sc, half_life, gates, coefs,
+                            bufs):
+    """Each route's bare launch on one grid, timed: {route: ms}."""
+    import torch
+    from repro_torch.kernels import topk_select as ktk
+    scalars = torch.stack(sc)
+    lt_ptr = None if half_life is None else lt.data_ptr()
+    return {kroute: time_ms(lambda: ktk.launch_region_rank(
+        lanes, ok, lt_ptr, scalars, coefs, tuple(gates.values()), half_life,
+        *bufs, kroute=kroute)) for kroute in ("row", "warp")}
+
+
+def region_rank_bound(ok, w_a, npass, K: int, min_src_weight: float,
+                      lazy: bool):
+    """region_rank's bound on one grid, from the bytes this data needs:
+    the base gate byte of each slot of a row whose source passes
+    min_src_weight; the pair's weight and count (and its i32 last_tick
+    under the lazy policy) where the base gate and the source pass; the dst
+    marginals' weight and count where every gate passes; per row its
+    source weight, its source count where a slot passes, K values, K
+    columns and npass written. Operations: one score (SCORE_OPS_PER_SLOT)
+    a passing slot."""
+    R, W = ok.shape
+    src = w_a >= min_src_weight
+    n_open = int((ok & src[:, None]).sum())
+    n_pass = int(npass.sum())
+    n_bytes = (int(src.sum()) * W + n_open * (12 if lazy else 8)
+               + n_pass * 8 + R * 4 + int((npass > 0).sum()) * 4
+               + R * (K * 8 + 4))
+    return bound(n_bytes, n_pass * SCORE_OPS_PER_SLOT)
+
+
+def sass_count(stem: str, kernel: str):
+    """Static SASS instructions of the entry functions of csrc/<stem>.cu
+    whose names contain ``kernel`` (``cuobjdump -sass`` of the built
+    library): {function: count}, or None without cuobjdump."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    lib = build.library_path(build.CSRC / f"{stem}.cu")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                out[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            out[name] += 1
+    return out
+
+
 def check_region_rank(R: int, W: int, K: int, dev):
-    """region_rank with and without in-kernel decay against the plain
-    version: npass and the gate masks equal apart from rows where the lazy
-    gate sits within 1 ulp of min_pair_weight (counted and printed); every
-    other row's values and columns equal exactly."""
+    """region_rank's two routes with and without in-kernel decay against
+    the plain version on a synthetic grid (72% of slots pass), both timed
+    by their bare launches against the bytes this grid needs
+    (:func:`region_rank_bound`) and against the yardstick of 17 B a slot
+    (21 B under the lazy policy) that every slot would need were it all
+    read; fails unless the row route is the faster. Prints each kernel's
+    ptxas lines and static SASS count beside assoc_score's (one score a
+    slot)."""
     import numpy as np
     import torch
     from repro_torch.core.ranking import RankConfig
     from repro_torch.kernels import ref
-    from repro_torch.kernels.topk_select import (decay_exp2,
-                                                 launch_region_rank,
-                                                 region_rank)
+    from repro_torch.kernels.topk_select import region_rank
     rc = RankConfig()
     gates = dict(min_pair_weight=rc.min_pair_weight,
                  min_src_weight=rc.min_src_weight,
@@ -306,66 +440,148 @@ def check_region_rank(R: int, W: int, K: int, dev):
     sc = [torch.tensor(x, dtype=torch.float32, device=dev)
           for x in (float(R * W) * 2.0, float(R * W) * 4.0, 17.0)]
     kw = dict(k=K, coefs=rc.coefs, **gates)
-    err, lazy_ms = 0.0, None
+    err, ms, bnd, yard = 0.0, {}, {}, {}
     for half_life in (None, 36.0):
-        vals, args, npass = region_rank(*lanes, ok, lt, *sc,
-                                        half_life=half_life, **kw)
-        w_eff = w_ab
-        if half_life is not None:
-            w_eff = decay_exp2(w_ab, lt, sc[2], half_life)
-        ev, ea, en = ref.region_rank_ref(w_eff, *lanes[1:], ok, sc[0], sc[1],
-                                         **kw)
-        near = ((w_eff - rc.min_pair_weight).abs()
-                <= 2.0 ** -23 * 0.25).any(1)
-        same = (npass == en) & (vals == ev).all(1) & (args == ea).all(1)
-        n_flip_rows = int((~same).sum())
-        if n_flip_rows != int((~same & near).sum()):
-            raise AssertionError("region_rank differs from the plain version "
-                                 "away from the min_pair_weight boundary")
-        fin = (vals > -torch.inf) & (ev > -torch.inf) & same[:, None]
-        e = float((vals[fin] - ev[fin]).abs().max())
+        e, bufs, en = region_rank_routes("synthetic grid", lanes, ok, lt, sc,
+                                         K, half_life, gates, rc.coefs)
         err = max(err, e)
-        log(f"  region_rank half_life={half_life}: max_abs_err={e!r}, rows "
-            f"differing (gate within 1 ulp of min_pair_weight)="
-            f"{n_flip_rows} of {R}")
-        if half_life is not None:
-            scalars = torch.stack(sc)
-            bufs = (torch.empty_like(vals), torch.empty_like(args),
-                    torch.empty_like(npass))
-            lazy_ms = time_ms(lambda: launch_region_rank(
-                lanes, ok, lt.data_ptr(), scalars, rc.coefs,
-                tuple(gates.values()), 36.0, *bufs))
-    scalars = torch.stack(sc)
-    bufs = (torch.empty_like(vals), torch.empty_like(args),
-            torch.empty_like(npass))
-    ms = time_ms(lambda: launch_region_rank(
-        lanes, ok, None, scalars, rc.coefs, tuple(gates.values()), None,
-        *bufs))
+        ms[half_life] = time_region_rank_routes(lanes, ok, lt, sc, half_life,
+                                                gates, rc.coefs, bufs)
+        lazy = half_life is not None
+        bnd[half_life] = (int(en.sum()), *region_rank_bound(
+            ok, w_a, en, K, gates["min_src_weight"], lazy))
+        yard[half_life] = bound(R * W * (21 if lazy else 17)
+                                + R * (8 + K * 8 + 4), 0)[0]
+    for half_life in (None, 36.0):
+        n_pass, bm, b_by = bnd[half_life]
+        ym = yard[half_life]
+        log(f"  region_rank synthetic grid ({R}x{W}, K={K}), half_life="
+            f"{half_life}: {n_pass} slots pass "
+            f"({100 * n_pass / (R * W):.2f}%); bound {bm!r} ms ({b_by}), "
+            f"yardstick at every slot's {21 if half_life else 17} B "
+            f"{ym!r} ms")
+        for kroute in ("row", "warp"):
+            t = ms[half_life][kroute]
+            log(f"  region_rank {kroute} route, synthetic grid, "
+                f"half_life={half_life}: {t!r} ms, {100 * bm / t:.2f}% of "
+                f"bound, {100 * ym / t:.2f}% of the yardstick")
+    _, b_ms, b_by = bnd[None]
+    _, lazy_b_ms, _ = bnd[36.0]
+    if not ms[None]["row"] < ms[None]["warp"]:
+        raise AssertionError(f"region_rank: the row route ({ms[None]['row']} "
+                             f"ms) is not faster than the warp route "
+                             f"({ms[None]['warp']} ms)")
+    log(f"  region_rank synthetic grid: row route "
+        f"{ms[None]['warp'] / ms[None]['row']:.2f}x faster than the warp "
+        f"route")
+    for stem, entry in (("row", "region_rank_row_kernel"),
+                        ("warp", "region_rank_kernel")):
+        for line in ptxas_report("region_rank", entry):
+            log(f"    ptxas ({stem} route): {line}")
+    # the engine's instances (W 128, K 8) and assoc_score's kernel, whose
+    # body is one score a slot
+    for what, stem, kernel in (
+            ("row route", "region_rank", "region_rank_row_kernelILi4ELi8E"),
+            ("warp route", "region_rank", "region_rank_kernelILi4E"),
+            ("assoc_score", "assoc_score", "assoc_score_kernel")):
+        counts = sass_count(stem, kernel)
+        n = "not measured" if counts is None else sum(counts.values())
+        log(f"    SASS instructions, static ({what}): {n}")
     wrapper_ms = time_ms(lambda: region_rank(*lanes, ok, lt, *sc, **kw))
     plain_ms = time_ms(lambda: ref.region_rank_ref(*lanes, ok, sc[0], sc[1],
                                                    **kw))
-    b_ms, b_by = bound(R * W * 17 + R * (8 + K * 8 + 4),
-                       R * W * SCORE_OPS_PER_SLOT)
-    lazy_b_ms, _ = bound(R * W * 21 + R * (8 + K * 8 + 4),
-                         R * W * SCORE_OPS_PER_SLOT)
-    log(f"  region_rank lazy (half_life=36): ms={lazy_ms!r} "
-        f"bound_ms={lazy_b_ms!r}")
-    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+    return dict(max_abs_err=err, ms=ms[None]["row"], wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, kernel_route="row",
+                yardstick_bound_ms=yard[None], slots_pass=bnd[None][0],
+                warp_route_ms=ms[None]["warp"], lazy_ms=ms[36.0]["row"],
+                lazy_warp_route_ms=ms[36.0]["warp"], lazy_bound_ms=lazy_b_ms,
+                lazy_yardstick_bound_ms=yard[36.0],
+                lazy_slots_pass=bnd[36.0][0])
+
+
+def check_region_rank_path_grid(call, tick):
+    """region_rank's two routes on the grid the region path's rank cycle of
+    ``tick`` passed it (an untimed replay): the live and passing slots, each
+    route against the plain version, both timed against the bytes that data
+    needs (:func:`region_rank_bound`) and against a yardstick that reads
+    the base gate byte of every slot, 16 B for each live slot, and each
+    row's two marginals, K values, K columns and npass."""
+    a, kw = call
+    w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c = a
+    if kw.get("decay_cfg") is not None:
+        raise AssertionError("the region cell runs the sweep policy")
+    R, W = w_ab.shape
+    K = kw["k"]
+    gates = dict(min_pair_weight=kw["min_pair_weight"],
+                 min_src_weight=kw["min_src_weight"],
+                 min_pair_count=kw["min_pair_count"])
+    lanes = (w_ab, c_ab, w_a, w_b, c_a, c_b)
+    sc = [total_w, total_c, total_w.new_zeros(())]
+    label = f"region path grid, tick {tick}"
+    err, bufs, en = region_rank_routes(label, lanes, ok, None, sc, K, None,
+                                       gates, kw["coefs"])
+    ms = time_region_rank_routes(lanes, ok, None, sc, None, gates,
+                                 kw["coefs"], bufs)
+    n_ok, n_pass = int(ok.sum()), int(en.sum())
+    rows_free = int((~ok.any(1)).sum())
+    src_rows = int((w_a >= gates["min_src_weight"]).sum())
+    b_ms, b_by = region_rank_bound(ok, w_a, en, K, gates["min_src_weight"],
+                                   False)
+    y_ms = bound(R * W + n_ok * 16 + R * (8 + K * 8 + 4), 0)[0]
+    log(f"  region_rank {label}: {R}x{W}, K={K}, {n_ok} slots live "
+        f"({100 * n_ok / (R * W):.3f}%), {n_pass} pass "
+        f"({100 * n_pass / (R * W):.3f}%), {rows_free} rows with no live "
+        f"slot, {src_rows} rows whose source passes; bound {b_ms!r} ms "
+        f"({b_by}), yardstick (every gate byte, 16 B a live slot) "
+        f"{y_ms!r} ms")
+    for kroute in ("row", "warp"):
+        log(f"  region_rank {kroute} route, {label}: {ms[kroute]!r} ms, "
+            f"{100 * b_ms / ms[kroute]:.2f}% of that data's bound, "
+            f"{100 * y_ms / ms[kroute]:.2f}% of the yardstick")
+    return dict(rows=R, width=W, k=K, slots_live=n_ok, slots_pass=n_pass,
+                rows_without_live_slot=rows_free, rows_source_pass=src_rows,
+                row_ms=ms["row"], warp_ms=ms["warp"], bound_ms=b_ms,
+                bound_by=b_by, yardstick_bound_ms=y_ms, max_abs_err=err)
+
+
+def chain_find_sweep(kh, kl, batch, kroute, out):
+    """chain_find's bare launch on one batch at each rows-a-warp the
+    kernel takes, on ``kroute``, each result held exactly against the
+    wrapper's: {rows a warp: ms}."""
+    import torch
+    from repro_torch.kernels.region_probe import chain_find, launch_chain_find
+    exp = chain_find(kh, kl, *batch)
+    ms = {}
+    for rpw in (1, 2, 4, 8, 16, 32):
+        launch_chain_find(kh, kl, *batch, out, kroute=kroute, rpw=rpw)
+        if not torch.equal(out, exp):
+            raise AssertionError(f"chain_find at {rpw} rows a warp differs")
+        ms[rpw] = time_ms(lambda: launch_chain_find(
+            kh, kl, *batch, out, kroute=kroute, rpw=rpw))
+    return ms
 
 
 def check_chain_find(table, batch, dev):
     """chain_find on the region store and largest pair batch of the
-    phase-4 region run's ticks, held exactly against the plain version."""
+    phase-4 region run's ticks, held exactly against the plain version;
+    the batch's active share and the 32-row groups and the groups of a
+    warp's rows without an active row, its time and its share of the
+    bound, the other route's time forced through the bare launch, and the
+    time at each rows-a-warp."""
     import torch
     from repro_torch.kernels import ref
+    from repro_torch.kernels import region_probe as kprobe
     from repro_torch.kernels.region_probe import chain_find, launch_chain_find
     R, W = table.n_regions, table.width
     kh, kl = table.key_hi.view(R, W), table.key_lo.view(R, W)
     regs, dh, dl, active = batch
     B, MC = regs.shape
+    by_route = dict(kprobe.ROUTE_LAUNCHES)
     got = chain_find(kh, kl, regs, dh, dl, active)
+    kroute = kprobe.kernel_route(kh, kl)
+    if kprobe.ROUTE_LAUNCHES[kroute] != by_route[kroute] + 1:
+        raise AssertionError(f"chain_find did not take the {kroute} route")
     exp = ref.chain_find_ref(kh, kl, regs, dh, dl, active)
     if not torch.equal(got, exp):
         raise AssertionError("chain_find differs from the plain version")
@@ -382,19 +598,81 @@ def check_chain_find(table, batch, dev):
     n_active = int(active.sum())
     n_ids = int(torch.where(active, ids_read, 0).sum())
     n_visits = int(torch.where(active, visited, 0).sum())
-    log(f"  chain_find: {B} rows ({n_active} active, {int(hit.sum())} "
-        f"hits), {n_ids} region ids and {n_visits} region rows read, "
-        f"MC={MC}, W={W}")
+    target = kprobe.target_warps(dev, W, kroute == "vec")
+    rpw = kprobe.rows_per_warp(B, target)
+    idle = {}
+    for g in sorted({32, rpw}):
+        groups = -(-B // g)
+        pad = torch.zeros(groups * g, dtype=torch.bool, device=dev)
+        pad[:B] = active
+        idle[g] = (int((~pad.view(groups, g).any(1)).sum()), groups)
+    log(f"  chain_find: {B} rows ({n_active} active, "
+        f"{100 * n_active / B:.3f}%; {int(hit.sum())} hits), "
+        + ", ".join(f"{n} of {groups} {g}-row groups"
+                    for g, (n, groups) in idle.items())
+        + f" with no active row, {n_ids} region ids "
+        f"and {n_visits} region rows read, MC={MC}, W={W}, {kroute} route, "
+        f"{rpw} rows a warp (target {target} warps: {kprobe.WAVES} waves "
+        f"of {target // kprobe.WAVES} resident)")
     out = torch.empty_like(got)
     ms = time_ms(lambda: launch_chain_find(kh, kl, regs, dh, dl, active, out))
+    other = "scalar" if kroute == "vec" else None
+    other_ms = None
+    if other:
+        launch_chain_find(kh, kl, regs, dh, dl, active, out, kroute=other)
+        if not torch.equal(out, exp):
+            raise AssertionError(f"chain_find's {other} route differs from "
+                                 f"the plain version")
+        other_ms = time_ms(lambda: launch_chain_find(
+            kh, kl, regs, dh, dl, active, out, kroute=other))
     wrapper_ms = time_ms(lambda: chain_find(kh, kl, regs, dh, dl, active))
     plain_ms = time_ms(lambda: ref.chain_find_ref(kh, kl, regs, dh, dl,
                                                   active))
     b_ms, b_by = bound(n_ids * 4 + n_active * 8 + B * (1 + 4)
                        + n_visits * W * 8, n_visits * W * 2)
+    log(f"  chain_find: {ms!r} ms, {100 * b_ms / ms:.2f}% of bound "
+        f"({b_ms!r} ms, {b_by}), {B / ms / 1e3:.1f} rows/us")
+    if other:
+        log(f"  chain_find {other} route forced, same batch: {other_ms!r} "
+            f"ms, {100 * b_ms / other_ms:.2f}% of bound; {kroute} route "
+            f"{other_ms / ms:.3f}x faster")
+    sweep = chain_find_sweep(kh, kl, batch, kroute, out)
+    log(f"  chain_find by rows a warp, {B}-row batch: {sweep}")
+    for line in ptxas_report("chain_find", "chain_find_kernel"):
+        log(f"    ptxas: {line}")
     return dict(max_abs_err=0.0, ms=ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, kernel_route=kroute, rows_per_warp=rpw,
+                other_route_ms=other_ms, ms_by_rows_per_warp=sweep)
+
+
+def check_chain_find_batch(table, batch):
+    """chain_find on another of the region run's batch sizes: held exactly
+    against the plain version, its active share, rows a warp and time, and
+    the time at each rows-a-warp."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import region_probe as kprobe
+    R, W = table.n_regions, table.width
+    kh, kl = table.key_hi.view(R, W), table.key_lo.view(R, W)
+    regs, dh, dl, active = batch
+    got = kprobe.chain_find(kh, kl, regs, dh, dl, active)
+    if not torch.equal(got, ref.chain_find_ref(kh, kl, regs, dh, dl,
+                                               active)):
+        raise AssertionError("chain_find differs from the plain version")
+    B, n_active = regs.shape[0], int(active.sum())
+    kroute = kprobe.kernel_route(kh, kl)
+    rpw = kprobe.rows_per_warp(B, kprobe.target_warps(
+        regs.device, W, kroute == "vec"))
+    out = torch.empty_like(got)
+    ms = time_ms(lambda: kprobe.launch_chain_find(kh, kl, regs, dh, dl,
+                                                  active, out))
+    log(f"  chain_find, a {B}-row batch ({n_active} active, "
+        f"{100 * n_active / B:.3f}%), {rpw} rows a warp: {ms!r} ms")
+    sweep = chain_find_sweep(kh, kl, batch, kroute, out)
+    log(f"  chain_find by rows a warp, {B}-row batch: {sweep}")
+    return dict(rows=B, active=n_active, rows_per_warp=rpw, ms=ms,
+                ms_by_rows_per_warp=sweep)
 
 
 def topk_bound(R: int, L: int, K: int):
@@ -721,6 +999,11 @@ def main_path(dev, ticks, layout):
     return eng, step_ms, cycle_ms, results, launches
 
 
+# The engine's kernels, each named in its CUDA kernels' function names.
+ENGINE_KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk",
+                  "chain_find", "region_rank")
+
+
 def _profiled(label, fn) -> None:
     """Run ``fn`` under torch.profiler: wall time, summed device kernel
     time, device busy share, and the kernels that take it."""
@@ -748,6 +1031,16 @@ def _profiled(label, fn) -> None:
         f"{sum(r[2] for r in rows)} kernel launches")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"    {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    ours = {name: [0.0, 0] for name in ENGINE_KERNELS}
+    for key, ms, n in rows:
+        for name in ENGINE_KERNELS:
+            if name in key:
+                ours[name][0] += ms
+                ours[name][1] += n
+    if any(n for _, n in ours.values()):
+        log(f"  profiled {label}, engine kernels: " + ", ".join(
+            f"{name} {ms!r} ms x{n}" for name, (ms, n) in ours.items()
+            if n))
 
 
 def profile_tick(eng, tick, layout) -> None:
@@ -774,8 +1067,11 @@ def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
     cfg, _ = deployment_config(layout)
     torch.cuda.reset_peak_memory_stats()
     by_route = dict(ktk.ROUTE_LAUNCHES)
+    rr_route = dict(ktk.REGION_ROUTE_LAUNCHES)
     eng, step_ms, cycle_ms, results, launches = main_path(dev, ticks, layout)
     by_route = {r: n - by_route[r] for r, n in ktk.ROUTE_LAUNCHES.items()}
+    rr_route = {r: n - rr_route[r]
+                for r, n in ktk.REGION_ROUTE_LAUNCHES.items()}
     st = eng.state
     q = st.qstore
     qstore = q._replace(key_hi=q.key_hi.clone(), key_lo=q.key_lo.clone(),
@@ -785,10 +1081,13 @@ def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
     Q, C = cfg.query_capacity, cfg.cooc_capacity
     live_q, live_c = int(st.qstore.live_count()), int(st.cooc.live_count())
     log(f"  {layout} launches on the main path: {launches}; bucket_topk "
-        f"by route {by_route}")
+        f"by route {by_route}; region_rank by route {rr_route}")
     if by_route["row"] != launches["bucket_topk"]:
         raise AssertionError(f"{layout} bucket_topk launches by route: "
                              f"{by_route}")
+    if rr_route["row"] != launches["region_rank"]:
+        raise AssertionError(f"{layout} region_rank launches by route: "
+                             f"{rr_route}")
     log(f"  {layout} n_dropped {drops}; live qstore {live_q}/{Q}, "
         f"cooc {live_c}/{C}")
     if layout == "region":
@@ -993,19 +1292,21 @@ def largest_edit_distance_batch(dev, qstore, tok):
 
 def largest_chain_find_batch(dev, ticks):
     """An untimed replay of the region main path's ticks that keeps the
-    pair batch with the most active rows passed to chain_find. Returns the
-    replay's region store and that batch (regs, dst_hi, dst_lo, active)."""
+    pair batch with the most active rows passed to chain_find, and the last
+    batch of each other row count. Returns the replay's region store, that
+    batch (regs, dst_hi, dst_lo, active) and {rows: last batch}."""
     from repro_torch.core.engine import SearchAssistanceEngine
     from repro_torch.kernels import ops as kops
     cfg, _ = deployment_config("region")
-    largest = {}
+    largest, by_rows = {}, {}
     chain_find = kops.chain_find
 
     def spy(khi, klo, regs, dh, dl, active):
         n = int(active.sum())
+        batch = tuple(t.clone() for t in (regs, dh, dl, active))
         if n > largest.get("n", -1):
-            largest.update(n=n, batch=tuple(
-                t.clone() for t in (regs, dh, dl, active)))
+            largest.update(n=n, batch=batch)
+        by_rows[regs.shape[0]] = batch
         return chain_find(khi, klo, regs, dh, dl, active)
 
     kops.chain_find = spy
@@ -1015,7 +1316,9 @@ def largest_chain_find_batch(dev, ticks):
             eng.step(events, tweets)
     finally:
         kops.chain_find = chain_find
-    return eng.state.cooc, largest["batch"]
+    rows = largest["batch"][0].shape[0]
+    return eng.state.cooc, largest["batch"], {
+        b: batch for b, batch in by_rows.items() if b != rows}
 
 
 def last_bucket_topk_grid(dev, ticks, layout):
@@ -1047,6 +1350,38 @@ def last_bucket_topk_grid(dev, ticks, layout):
         raise AssertionError(f"{layout} replay: {len(calls)} bucket_topk "
                              f"calls in {len(ranked)} rank cycles")
     return last["grid"], last["k"], ranked[-1]
+
+
+def last_region_rank_call(dev, ticks):
+    """An untimed replay of the region path's ticks that keeps what its last
+    region_rank call was given (ops.region_rank's arguments, cloned), at the
+    last rank cycle. Returns (args, kwargs, the tick of that rank cycle)."""
+    import torch
+    from repro_torch.core.engine import SearchAssistanceEngine
+    from repro_torch.kernels import ops as kops
+    cfg, _ = deployment_config("region")
+    calls, ranked, last = [], [], {}
+    region_rank = kops.region_rank
+
+    def spy(*a, **kw):
+        calls.append(kw["k"])
+        last.update(call=(tuple(t.clone() if torch.is_tensor(t) else t
+                                for t in a), dict(kw)))
+        return region_rank(*a, **kw)
+
+    kops.region_rank = spy
+    try:
+        eng = SearchAssistanceEngine(cfg, device=dev)
+        for events, tweets in ticks:
+            res = eng.step(events, tweets)
+            if res:
+                ranked.append(res["tick"])
+    finally:
+        kops.region_rank = region_rank
+    if len(calls) != len(ranked) or not ranked:
+        raise AssertionError(f"region replay: {len(calls)} region_rank "
+                             f"calls in {len(ranked)} rank cycles")
+    return last["call"], ranked[-1]
 
 
 def two_runs_bit_identical(dev, ticks, layout) -> None:
@@ -1457,8 +1792,40 @@ def run_lm(dev, rows):
     return launches
 
 
+def profile_region() -> None:
+    """The region cell's 17 ticks, then one more ingest tick and one rank
+    cycle under the profiler, on the ``repro_torch`` package on the path."""
+    import torch
+    import repro_torch
+    from repro_torch.core.engine import SearchAssistanceEngine
+    from repro_torch.data.stream import SyntheticStream
+    log(f"profile region: {card_line()} | package "
+        f"{Path(repro_torch.__file__).parent}")
+    cfg, scfg = deployment_config("region")
+    stream = SyntheticStream(scfg, seed=SEED)
+    ticks = [stream.gen_tick(t) for t in range(18)]
+    eng = SearchAssistanceEngine(cfg, device=torch.device("cuda"))
+    for events, tweets in ticks[:17]:
+        eng.step(events, tweets)
+    profile_tick(eng, ticks[17], "region")
+
+
 def main() -> int:
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile-region-only", action="store_true",
+                    help="profile the region cell's ingest tick and rank "
+                         "cycle, and nothing else")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="with --profile-region-only: a directory inside "
+                         "this checkout whose src/repro_torch is profiled")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    if root != ROOT and not (args.profile_region_only
+                             and root.is_relative_to(ROOT)):
+        print("chip_smoke: --root takes a directory inside this checkout, "
+              "with --profile-region-only", file=sys.stderr)
+        return 2
+    if not (root / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
@@ -1466,7 +1833,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(root / "src"))
+    if args.profile_region_only:
+        profile_region()
+        return 0
     from repro_torch import kernels as tk
     from repro_torch.kernels import build
     dev = torch.device("cuda")
@@ -1556,11 +1926,21 @@ def main() -> int:
         torch.cuda.empty_cache()
     log("[2] chain_find at the region run's shapes (untimed replay of its "
         "ticks)")
-    table, batch = largest_chain_find_batch(dev, ticks)
+    table, batch, others = largest_chain_find_batch(dev, ticks)
     rows["chain_find"] = check_chain_find(table, batch, dev)
+    rows["chain_find"]["other_batches"] = [
+        check_chain_find_batch(table, b) for b in others.values()]
     log(f"  chain_find at its main-path shape: "
         f"{json.dumps(rows['chain_find'])}")
-    del table, batch
+    del table, batch, others
+    torch.cuda.empty_cache()
+    log("[2] region_rank at the region path's own grid (untimed replay of "
+        "its ticks, the last rank cycle)")
+    call, tick = last_region_rank_call(dev, ticks)
+    rows["region_rank"]["path_grid"] = check_region_rank_path_grid(call, tick)
+    log(f"  region_rank at the region path's grid: "
+        f"{json.dumps(rows['region_rank']['path_grid'])}")
+    del call
     torch.cuda.empty_cache()
     log("[2] bucket_topk at the main paths' own grids (untimed replays of "
         "their ticks, the last rank cycle)")

@@ -29,7 +29,8 @@
 // every index is a compile-time constant), started at (-inf, L). A value
 // is inserted only when it is strictly greater than the list's last entry;
 // a compare-and-shift puts it behind the entries equal to it, which keeps
-// ties in column order. That one compare rejects most columns, and every
+// ties in column order (row_topk.cuh, shared with region_rank). That one
+// compare rejects most columns, and every
 // column of an all -inf row, so the hash path's grid (nearly all rows
 // empty) costs little more than its bytes. No shuffle, no local memory.
 // The first K entries are written as 16-byte stores where K and the output
@@ -45,6 +46,7 @@
 #include <cstdint>
 #include <math.h>
 
+#include "row_topk.cuh"
 #include "warp_topk.cuh"
 
 namespace {
@@ -103,26 +105,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Insert (x, col) into the descending list (v, c) behind the entries equal
-// to x, if x is greater than the last entry. Going from the end, entry i
-// takes entry i-1 where x beats that too, else x where x beats entry i.
-template <int KMAX>
-__device__ __forceinline__ void insert(float (&v)[KMAX], int (&c)[KMAX],
-                                       float x, int col) {
-  if (!(x > v[KMAX - 1])) return;
-#pragma unroll
-  for (int i = KMAX - 1; i > 0; --i) {
-    const bool up = x > v[i - 1];
-    const bool here = x > v[i];
-    v[i] = up ? v[i - 1] : (here ? x : v[i]);
-    c[i] = up ? c[i - 1] : (here ? col : c[i]);
-  }
-  if (x > v[0]) {
-    v[0] = x;
-    c[0] = col;
-  }
-}
-
 // Copies elements [0, n) of src into the tile, element e at
 // (e / L) * stride + e % L; the n elements are W-element chunks (W 4 or 1)
 // that never straddle a row, so a thread steps (row, col) by the block's
@@ -178,41 +160,18 @@ __global__ void __launch_bounds__(kMaxTileRows)
 
   float v[KMAX];
   int c[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    v[i] = -INFINITY;
-    c[i] = L;
-  }
+  repro::init_topk<KMAX>(v, c, L);
   const float4* rowp = reinterpret_cast<const float4*>(tile + t * stride);
   for (int q = 0; q < lp / 4; ++q) {
     const float4 x = rowp[q];
-    insert<KMAX>(v, c, x.x, 4 * q);
-    insert<KMAX>(v, c, x.y, 4 * q + 1);
-    insert<KMAX>(v, c, x.z, 4 * q + 2);
-    insert<KMAX>(v, c, x.w, 4 * q + 3);
+    repro::insert<KMAX>(v, c, x.x, 4 * q);
+    repro::insert<KMAX>(v, c, x.y, 4 * q + 1);
+    repro::insert<KMAX>(v, c, x.z, 4 * q + 2);
+    repro::insert<KMAX>(v, c, x.w, 4 * q + 3);
   }
 
-  float* vo = vals + (r0 + t) * K;
-  int32_t* ao = args + (r0 + t) * K;
-  if (vec_out) {
-#pragma unroll
-    for (int q = 0; q < KMAX / 4; ++q) {
-      if (4 * q < K) {
-        reinterpret_cast<float4*>(vo)[q] =
-            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-        reinterpret_cast<int4*>(ao)[q] =
-            make_int4(c[4 * q], c[4 * q + 1], c[4 * q + 2], c[4 * q + 3]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) {
-      if (i < K) {
-        vo[i] = v[i];
-        ao[i] = c[i];
-      }
-    }
-  }
+  repro::write_topk<KMAX>(v, c, K, vec_out, vals + (r0 + t) * K,
+                          args + (r0 + t) * K);
 }
 
 template <int KMAX>

@@ -3,8 +3,8 @@ region pass.
 
 Port of the JAX package's ``kernels/topk_select.py`` (``score_gate``,
 ``bucket_topk`` and ``region_rank``). On CUDA tensors the wrappers launch
-``csrc/score_gate.cu``, ``csrc/bucket_topk.cu`` (on one of two routes,
-:func:`kernel_route`) and ``csrc/region_rank.cu``;
+``csrc/score_gate.cu``, ``csrc/bucket_topk.cu`` and ``csrc/region_rank.cu``
+(each of the last two on one of two routes, :func:`kernel_route`);
 on CPU tensors they run the plain versions in ``ref.py``. The kernels take
 any capacity and any row count, so the Pallas version's tile padding is
 gone.
@@ -51,6 +51,10 @@ def _region_rank_lib():
         [ctypes.c_void_p] * 9 + [ctypes.c_float] * 8
         + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 4)
+    lib.repro_region_rank_rows.restype = ctypes.c_int
+    lib.repro_region_rank_rows.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_float] * 8
+        + [ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
     lib.repro_region_rank_max_width.restype = ctypes.c_int
     lib.repro_region_rank_max_width.argtypes = []
     return lib
@@ -137,12 +141,18 @@ ROW_KMAX = (8, 16, 32)          # the row kernel's list lengths
 ROW_TILE_ROWS = (128, 64)       # rows a block at L <= 64, at wider L
 SMEM_PER_BLOCK = 232448         # 227 KB of shared memory a block (sm_90)
 
-# Launches per kernel route, counted beside LAUNCHES["bucket_topk"].
+# Launches per kernel route, counted beside LAUNCHES["bucket_topk"] and
+# LAUNCHES["region_rank"]. region_rank's routes (csrc/region_rank.cu) are
+# chosen by the same rule: "row", gate first, score only the passing slots
+# and one thread a row's top-k, for K up to ROW_MAX_K; "warp", one warp per
+# region row, for any K.
 ROUTE_LAUNCHES: Dict[str, int] = {"row": 0, "warp": 0}
+REGION_ROUTE_LAUNCHES: Dict[str, int] = {"row": 0, "warp": 0}
 
 
 def kernel_route(k: int) -> str:
-    """The CUDA kernel's route for top-``k``: ``"row"`` or ``"warp"``."""
+    """The CUDA kernels' route for top-``k`` (``bucket_topk`` and
+    ``region_rank``): ``"row"`` or ``"warp"``."""
     return "row" if k <= ROW_MAX_K else "warp"
 
 
@@ -231,8 +241,9 @@ def region_rank(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick, total_w,
     ``half_life`` enables the exponential read-time decay of ``w_ab`` from
     ``last_tick`` (i32[R, W]) to ``now``. Returns (vals f32[R, k], args
     i32[R, k], npass i32[R]); ties go to the lowest column, exhausted
-    rounds give ``-inf`` and the sentinel column W. The CUDA kernel keeps a
-    region row in one warp's registers, so it raises for W above 128.
+    rounds give ``-inf`` and the sentinel column W. The CUDA kernel takes
+    the route :func:`kernel_route` names and reads a region row with one
+    warp, at most four slots a lane, so it raises for W above 128.
     """
     grid = (w_ab, c_ab, w_b, c_b)
     if route(*grid, w_a, c_a, ok) == "plain":
@@ -279,22 +290,36 @@ def region_rank(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, last_tick, total_w,
 
 
 def launch_region_rank(lanes, ok, lt_ptr, scalars, coefs, gates, half_life,
-                       vals, args, npass) -> None:
+                       vals, args, npass, kroute: Optional[str] = None
+                       ) -> None:
     """Launch the region_rank kernel into ``vals``/``args`` [R, k] and
-    ``npass`` [R], counting it.
+    ``npass`` [R] on ``kroute`` (default :func:`kernel_route`'s), counting
+    it.
 
     The bare launch under :func:`region_rank`, which checks the lanes
     (``w_ab, c_ab, w_a, w_b, c_a, c_b``) and stacks ``scalars`` (f32[3]:
     total_w, total_c, now); ``lt_ptr`` is the ``last_tick`` lane's pointer,
     or None without ``half_life``.
     """
-    R, W = lanes[0].shape
+    (R, W), k = lanes[0].shape, int(vals.shape[1])
+    kroute = kernel_route(k) if kroute is None else kroute
+    lib = _region_rank_lib()
     c0, c1, c2, c3 = (float(c) for c in coefs)
-    code = _region_rank_lib().repro_region_rank(
-        *[t.data_ptr() for t in lanes], ok.data_ptr(), lt_ptr,
-        scalars.data_ptr(), c0, c1, c2, c3, *(float(g) for g in gates),
-        0.0 if half_life is None else float(half_life), R, W, vals.shape[1],
-        vals.data_ptr(), args.data_ptr(), npass.data_ptr(),
-        torch.cuda.current_stream(vals.device).cuda_stream)
+    head = ([t.data_ptr() for t in lanes]
+            + [ok.data_ptr(), lt_ptr, scalars.data_ptr(), c0, c1, c2, c3]
+            + [float(g) for g in gates]
+            + [0.0 if half_life is None else float(half_life), R, W, k])
+    outs = (vals.data_ptr(), args.data_ptr(), npass.data_ptr(),
+            torch.cuda.current_stream(vals.device).cuda_stream)
+    if kroute == "row":
+        if k > ROW_MAX_K:
+            raise ValueError(f"region_rank: the row route takes k up to "
+                             f"{ROW_MAX_K}, not {k}")
+        code = lib.repro_region_rank_rows(*head, row_kmax(k), *outs)
+    elif kroute == "warp":
+        code = lib.repro_region_rank(*head, *outs)
+    else:
+        raise ValueError(f"region_rank: no route {kroute!r}")
     check_launch(code, "region_rank")
     LAUNCHES["region_rank"] += 1
+    REGION_ROUTE_LAUNCHES[kroute] += 1

@@ -22,6 +22,8 @@ from repro_torch.core.spelling import encode_strings, spelling_cycle
 from repro_torch.core.stores import export_live
 from repro_torch.data.stream import StreamConfig, SyntheticStream
 from repro_torch.kernels import edit_distance as ked
+from repro_torch.kernels import region_probe as kprobe
+from repro_torch.kernels import topk_select as ktk
 from repro_torch.kernels import ref
 from repro_torch.kernels.assoc_score import assoc_score, score_body
 from repro_torch.kernels.decay_prune import decay_prune_multi
@@ -152,8 +154,15 @@ def test_bucket_topk_cuda_matches_plain(cuda, shape, k, kind):
         bucket_topk(torch.zeros((2, 129), device=cuda), 2)
 
 
-@pytest.mark.parametrize("W,MC", [(8, 4), (16, 8), (128, 8), (100, 3)])
+@pytest.mark.parametrize("W,MC", [(8, 4), (16, 8), (128, 8), (100, 3),
+                                  (128, 12)])
 def test_chain_find_cuda_matches_plain(cuda, W, MC):
+    """Dense (90% active, one warp a row), sparse (4% active over
+    32 x target_warps + 1 rows, 1,622,017 on an H100, whole 32-row groups
+    idle, 32 rows a warp, the most the kernel takes) and misaligned: the
+    active flags 1 byte and the dst keys 4 bytes off a 16-byte boundary,
+    and the key lanes 4 bytes off (the 4-byte route where W % 4 == 0 would
+    take the 16-byte one)."""
     rng = np.random.default_rng(W + MC)
     R, B = 512, 5000
     kh = rng.integers(0, 2**32, (R, W), dtype=np.uint32)
@@ -161,6 +170,7 @@ def test_chain_find_cuda_matches_plain(cuda, W, MC):
     kh[rng.random((R, W)) < 0.3] = 0
     kl[kh == 0] = 0
     kh[:, -1], kl[:, -1] = kh[:, 0], kl[:, 0]    # a key twice in a region
+    kh[:, 3], kl[:, 3] = kh[:, 2], kl[:, 2]      # twice in one lane's four
     depth = rng.integers(0, MC + 1, B)              # -1-terminated prefixes
     regs = rng.integers(0, R, (B, MC)).astype(np.int32)
     regs[np.arange(MC)[None, :] >= depth[:, None]] = -1
@@ -177,15 +187,90 @@ def test_chain_find_cuda_matches_plain(cuda, W, MC):
     exp = ref.chain_find_ref(*args)
     assert torch.equal(got, exp)
     assert int((got >= 0).sum()) > B // 3 and int((got < 0).sum()) > B // 10
+
+    target = kprobe.target_warps(cuda, W, kprobe.kernel_route(
+        *args[:2]) == "vec")
+    big = 32 * target + 1                 # 32 rows a warp, the kernel's
+    idx = np.arange(big) % B              # most
+    sparse = active[idx] & (rng.random(big) < 0.04)
+    sparse[64:40000] = False
+    s_args = args[:2] + [_t(x[idx], cuda) for x in (regs, dh, dl)] \
+        + [_t(sparse, cuda)]
+    assert kprobe.rows_per_warp(big, target) == 32
+    assert kprobe.rows_per_warp(B, target) == 1
+    got = chain_find(*s_args)
+    assert torch.equal(got, ref.chain_find_ref(*s_args))
+    assert 0 < int(sparse.sum()) <= 0.05 * big and int((got >= 0).sum()) > 0
+
+    def off(x, n):   # a copy of x whose base is n elements past an aligned one
+        buf = torch.empty(x.numel() + n, dtype=x.dtype, device=cuda)
+        y = buf[n:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    m_args = [off(args[0], 1), off(args[1], 1), args[2], off(args[3], 1),
+              off(args[4], 1), off(args[5], 1)]
+    assert m_args[5].data_ptr() % 16 == 1 and m_args[3].data_ptr() % 16 == 4
+    assert kprobe.kernel_route(*m_args[:2]) == "scalar"
+    assert kprobe.kernel_route(*args[:2]) == ("vec" if W % 4 == 0
+                                              else "scalar")
+    by_route = dict(kprobe.ROUTE_LAUNCHES)
+    got = chain_find(*m_args)
+    assert kprobe.ROUTE_LAUNCHES["scalar"] == by_route["scalar"] + 1
+    assert torch.equal(got, exp)
     with pytest.raises(ValueError):
         chain_find(torch.zeros((4, 256), dtype=torch.int32, device=cuda),
                    torch.zeros((4, 256), dtype=torch.int32, device=cuda),
                    *args[2:])
 
 
+def _region_rank_on_card(lanes, ok_t, lt_t, sc, K, W, half_life, kroute):
+    """region_rank on the card against the plain version: exact, apart from
+    rows where the lazy gate sits within 1 ulp of min_pair_weight. The
+    wrapper (on its route) and, where it is given, the other route forced
+    through the bare launch. Returns npass."""
+    before = tk.LAUNCHES["region_rank"]
+    by_route = dict(ktk.REGION_ROUTE_LAUNCHES)
+    vals, args, npass = region_rank(*lanes, ok_t, lt_t, *sc, k=K,
+                                    coefs=COEFS, half_life=half_life, **GATES)
+    assert tk.LAUNCHES["region_rank"] == before + 1
+    route = ktk.kernel_route(K)
+    assert ktk.REGION_ROUTE_LAUNCHES[route] == by_route[route] + 1
+    outs = [(vals, args, npass)]
+    if kroute is not None:
+        bufs = (torch.empty_like(vals), torch.empty_like(args),
+                torch.empty_like(npass))
+        ktk.launch_region_rank(
+            lanes, ok_t, None if half_life is None else lt_t.data_ptr(),
+            torch.stack(sc), COEFS, tuple(GATES.values()), half_life, *bufs,
+            kroute=kroute)
+        outs.append(bufs)
+    w_eff = lanes[0]
+    if half_life is not None:
+        w_eff = decay_exp2(w_eff, lt_t, sc[2], half_life)
+    ev, ea, en = ref.region_rank_ref(w_eff, *lanes[1:], ok_t, sc[0], sc[1],
+                                     K, COEFS, **GATES)
+    # a row may differ only where the lazy gate sits within 1 ulp of
+    # min_pair_weight; every other row is exact.
+    near = ((w_eff - GATES["min_pair_weight"]).abs()
+            <= 2.0 ** -23 * 0.25).any(1)
+    R = w_eff.shape[0]
+    for v, a, n in outs:
+        same = (n == en) & (v == ev).all(1) & (a == ea).all(1)
+        assert bool((same | near).all())
+        assert int(same.sum()) > 0.99 * R
+        assert bool((a[v == -torch.inf] == W).all())
+    return npass
+
+
 @pytest.mark.parametrize("half_life", [None, 6.0])
-@pytest.mark.parametrize("R,W,K", [(4096, 128, 8), (300, 16, 8), (50, 40, 16)])
+@pytest.mark.parametrize("R,W,K", [(4096, 128, 8), (300, 16, 8), (50, 40, 16),
+                                   (600, 64, 40)])
 def test_region_rank_cuda_matches_plain(cuda, half_life, R, W, K):
+    """Dense (80% of slots live) on the wrapper's route, the other route
+    forced on the same grid; then sparse as the region store fills it
+    (live slots a prefix of each row, at least 80% of rows all gated).
+    K 40 takes the warp route."""
     rng = np.random.default_rng(R + W)
     mk = lambda *s: (rng.random(s) * 1.0).astype(np.float32)
     w_ab, c_ab = np.floor(mk(R, W) * 20) / 4, np.floor(mk(R, W) * 20)
@@ -199,23 +284,15 @@ def test_region_rank_cuda_matches_plain(cuda, half_life, R, W, K):
     ok_t, lt_t = _t(ok, cuda), _t(lt, cuda)
     sc = [torch.tensor(x, dtype=torch.float32, device=cuda)
           for x in (1e4, 2e4, 25.0)]
-    before = tk.LAUNCHES["region_rank"]
-    vals, args, npass = region_rank(*lanes, ok_t, lt_t, *sc, k=K,
-                                    coefs=COEFS, half_life=half_life, **GATES)
-    assert tk.LAUNCHES["region_rank"] == before + 1
-    w_eff = lanes[0]
-    if half_life is not None:
-        w_eff = decay_exp2(w_eff, lt_t, sc[2], half_life)
-    ev, ea, en = ref.region_rank_ref(w_eff, *lanes[1:], ok_t, sc[0], sc[1],
-                                     K, COEFS, **GATES)
-    # a row may differ only where the lazy gate sits within 1 ulp of
-    # min_pair_weight; every other row is exact.
-    near = ((w_eff - GATES["min_pair_weight"]).abs()
-            <= 2.0 ** -23 * 0.25).any(1)
-    same = (npass == en) & (vals == ev).all(1) & (args == ea).all(1)
-    assert bool((same | near).all())
-    assert int(same.sum()) > 0.99 * R
-    assert bool((args[vals == -torch.inf] == W).all())
+    other = "warp" if ktk.kernel_route(K) == "row" else None
+    _region_rank_on_card(lanes, ok_t, lt_t, sc, K, W, half_life, other)
+
+    fill = rng.integers(1, W + 1, R)
+    fill[rng.permutation(R)[: int(0.85 * R)]] = 0   # 85% of regions free
+    sparse = np.arange(W)[None, :] < fill[:, None]
+    npass = _region_rank_on_card(lanes, _t(sparse, cuda), lt_t, sc, K, W,
+                                 half_life, other)
+    assert float((npass == 0).float().mean()) >= 0.8 and int(npass.sum()) > 0
     with pytest.raises(ValueError):
         region_rank(*(torch.zeros((2, 129), device=cuda) for _ in range(2)),
                     torch.zeros(2, device=cuda),
