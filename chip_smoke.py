@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-region-only [--root DIR]
+    python3 chip_smoke.py --profile-hash-only [--root DIR]
 
 Phases, each of which must pass:
 
@@ -44,7 +45,20 @@ Phases, each of which must pass:
      static SASS counts beside assoc_score's; and on the region path's own
      grid of its last rank cycle (an untimed replay). Both grids are timed
      against the bytes that grid needs and against a yardstick that reads
-     every slot.
+     every slot. ``scripts/score_rate.py`` measures the score floor, the
+     card's time for the scoring chain alone a slot (its run that scores
+     less its run that only makes the inputs), and every scoring
+     kernel's time is also set beside the floor times the slots it scored.
+     ``score_gate`` (both decay policies) and ``assoc_score`` run on
+     synthetic 2^24 lanes (~71% of slots pass) and on the lanes the hash
+     path's last rank cycle gave ``score_gate`` (an untimed replay; ~1.4%
+     live), each bit-equal to its plain version (score_gate wherever the
+     gates agree; the lazy gate's flips within 1 ulp of min_pair_weight
+     counted) through the wrapper and its bare launch, on the lanes and on
+     copies one element off 16-byte alignment (the 4-byte route); each
+     route timed with its pass share, the bytes those inputs need,
+     the 29 B (28 B) a slot yardstick, ``-Xptxas -v`` lines and static
+     SASS counts.
      ``flash_attention`` runs on layer 0's q/k/v from
      the phase-6 scoring forward (bf16, B 4, T 8192; the twin row by row),
      plus an f32 case at T 2048; its library column is SDPA with the band
@@ -63,7 +77,8 @@ Phases, each of which must pass:
      layout and once with the region layout, each with its kernels'
      launch counts set to 0 just before and read just after (every
      ``bucket_topk`` launch on its row route); suggestions
-     out, no drops on the hash path (region drops are printed). After the
+     out, no drops on the hash path (region drops are printed), every
+     ``score_gate`` launch on its 16-byte route. After the
      hash path, the spelling job over its 17-tick qstore, as the serving
      loop runs it (export, join_fp, tok.text, ``spelling_cycle``), with
      ``edit_distance``'s launches counted the same way (all on the
@@ -95,10 +110,13 @@ cell (its deployment configuration and stream, seed 0, 17 ticks) through
 the public engine API, then profiles one more ingest tick and one rank
 cycle as phase 4 does (wall, device time, the kernels that take it and
 each engine kernel's summed device time, ``chain_find`` and
-``region_rank`` among them). ``--root DIR`` takes the ``repro_torch``
-package from ``DIR/src``, where DIR lies inside this checkout (a parent
-commit unpacked with ``git archive`` under ``build/``), so one call on one
-card profiles two trees.
+``region_rank`` among them). ``--profile-hash-only`` does the same for the
+hash cell (``score_gate`` and ``bucket_topk`` in its rank cycle), then
+times ``score_gate``'s and ``assoc_score``'s bare launches on the
+synthetic lanes and on the lanes its last rank cycle gave ``score_gate``.
+``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
+DIR lies inside this checkout (a parent commit unpacked with ``git
+archive`` under ``build/``), so one call on one card profiles two trees.
 """
 from __future__ import annotations
 
@@ -229,78 +247,279 @@ def _score_inputs(C, dev):
 SCORE_OPS_PER_SLOT = 60   # f32 adds/muls/compares/divides + 9 libm calls
 
 
-def check_score_gate(C: int, dev):
-    """score_gate with and without in-kernel decay, against the plain
-    version at rtol 1e-5, atol 1e-6 where both are finite; gate flips
-    within one ulp of min_pair_weight are counted and printed."""
+def score_floor():
+    """``scripts/score_rate.py``'s measure(): the card's time for
+    repro::score_body alone, ms per 2^24 scores (its "score" run less its
+    "inputs" run, which makes the same inputs and skips the body), and the
+    static SASS of its kernel."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "score_rate", ROOT / "scripts" / "score_rate.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    res = mod.measure()
+    r = res["score"]
+    log(f"  score floor (scripts/score_rate.py): {res['floor_ms_per_2_24']!r}"
+        f" ms per 2^24 scores (scoring {r['ms_per_2_24']!r} less making the "
+        f"inputs alone {res['inputs']['ms_per_2_24']!r}), "
+        f"{r['sass_static']} static SASS (measured, not a bound)")
+    return res
+
+
+def floor_ms(floor, n_scored: int) -> float:
+    return floor["floor_ms_per_2_24"] * n_scored / 2 ** 24
+
+
+def score_gate_bytes(ok, passes, lazy: bool) -> int:
+    """The bytes score_gate needs on these inputs: every slot's gate byte
+    and score; the pair weight, count and source weight (and last_tick
+    under the lazy policy) where the base gate is set; the dst weight and
+    both counts' marginals where every gate passes; the three scalars."""
+    C = ok.shape[0]
+    return (C * 5 + int(ok.sum()) * (16 if lazy else 12)
+            + int(passes.sum()) * 12 + 12)
+
+
+def _times(fns):
+    return {k: time_ms(fn) for k, fn in fns.items()}
+
+
+def _unaligned(x):
+    """``x`` copied into a view one element into a buffer of its own, a
+    base that is not 16-byte aligned: the score kernels' 4-byte route."""
+    buf = x.new_empty(x.numel() + 1)
+    buf[1:].copy_(x)
+    return buf[1:]
+
+
+def score_gate_report(label, lanes, ok, lt, sc, half_life, gates, coefs,
+                      floor):
+    """score_gate on one set of lanes: the wrapper (its route counted) and
+    its bare launch on these lanes and on copies one element off 16-byte
+    alignment (the 4-byte route), each held against the plain version
+    (bit-equal wherever the gates agree; gate flips only within 1 ulp of
+    min_pair_weight, counted), then each bare launch timed against the bytes
+    these inputs need, the 29 B (33 B lazy) a slot yardstick and the score
+    floor times the slots scored. Returns the report."""
     import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import topk_select as ktk
+    kw = dict(coefs=coefs, half_life=half_life, **gates)
+    routes = dict(ktk.SCORE_ROUTE_LAUNCHES)
+    got = ktk.score_gate(*lanes, ok, lt, *sc, **kw)
+    route = next(r for r, n in ktk.SCORE_ROUTE_LAUNCHES.items()
+                 if n != routes[r])
+    w_eff = lanes[0]
+    if half_life is not None:
+        w_eff = ktk.decay_exp2(lanes[0], lt, sc[2], half_life)
+    exp = ref.score_gate_ref(w_eff, *lanes[1:], ok, sc[0], sc[1], coefs,
+                             **gates)
+    flips = torch.isneginf(got) != torch.isneginf(exp)
+    near = (w_eff - gates["min_pair_weight"]).abs() <= 2.0 ** -23 * 0.25
+    n_flips = int(flips.sum())
+    if n_flips != int((flips & near).sum()):
+        raise AssertionError(f"score_gate ({label}): gate masks differ away "
+                             f"from the min_pair_weight boundary")
+    if not torch.equal(got[~flips].view(torch.int32),
+                       exp[~flips].view(torch.int32)):
+        raise AssertionError(f"score_gate ({label}) differs from the plain "
+                             f"version where the gates agree")
+    both = ~flips & torch.isfinite(exp)
+    err = float((got[both] - exp[both]).abs().max()) if bool(both.any()) \
+        else 0.0
+    scalars, gv = torch.stack(sc), tuple(gates.values())
+    launches = {route: (lanes, ok, lt, torch.empty_like(got))}
+    if route == "vec":
+        launches["scalar"] = ([_unaligned(x) for x in lanes], _unaligned(ok),
+                              None if lt is None else _unaligned(lt),
+                              _unaligned(got))
+
+    def launch(ls, o, l_t, out):
+        ktk.launch_score_gate(ls, o, None if half_life is None
+                              else l_t.data_ptr(), scalars, coefs, gv,
+                              half_life, out)
+
+    for name, args in launches.items():
+        args[3].fill_(7.0)
+        before = ktk.SCORE_ROUTE_LAUNCHES[name]
+        launch(*args)
+        if ktk.SCORE_ROUTE_LAUNCHES[name] != before + 1:
+            raise AssertionError(f"score_gate ({label}) missed its {name} "
+                                 f"route")
+        if not torch.equal(args[3].view(torch.int32), got.view(torch.int32)):
+            raise AssertionError(f"score_gate ({label}, {name} route) "
+                                 f"differs from the wrapper's launch")
+    ms = _times({name: (lambda args=args: launch(*args))
+                 for name, args in launches.items()})
+    C = got.shape[0]
+    lazy = half_life is not None
+    passes = got > -torch.inf
+    n_ok, n_pass = int(ok.sum()), int(passes.sum())
+    b_ms, b_by = bound(score_gate_bytes(ok, passes, lazy),
+                       n_pass * SCORE_OPS_PER_SLOT)
+    y_ms = bound(C * (33 if lazy else 29), 0)[0]
+    f_ms = floor_ms(floor, n_pass) if floor else None
+    log(f"  score_gate {label}, half_life={half_life}: C={C}, route "
+        f"{route}, base gate {n_ok} ({100 * n_ok / C:.3f}%), {n_pass} pass "
+        f"({100 * n_pass / C:.3f}%), gate flips within 1 ulp of "
+        f"min_pair_weight {n_flips}; bound {b_ms!r} ms ({b_by}, the bytes "
+        f"these inputs need), yardstick {y_ms!r} ms "
+        f"({33 if lazy else 29} B a slot), score floor x {n_pass} scored "
+        f"{f_ms!r} ms")
+    for name, t in ms.items():
+        log(f"  score_gate {label}, half_life={half_life}, {name} route: "
+            f"{t!r} ms, {100 * b_ms / t:.2f}% of bound, {100 * y_ms / t:.2f}%"
+            f" of the yardstick" + (f", {100 * f_ms / t:.2f}% of the score "
+                                    f"floor" if f_ms else ""))
+    return dict(ms=ms[route], route=route, slots=C, base_gate=n_ok,
+                slots_pass=n_pass, gate_flips=n_flips, bound_ms=b_ms,
+                bound_by=b_by, yardstick_bound_ms=y_ms, score_floor_ms=f_ms,
+                ms_by_route=ms, max_abs_err=err)
+
+
+def assoc_score_report(label, lanes, tot, coefs, floor):
+    """assoc_score on one set of lanes, as score_gate_report: bit-equal to
+    score_body on every slot, timed against the bytes these inputs need
+    (c_ab and the score for every slot, the other five lanes where
+    c_ab > 0), the 28 B a slot yardstick and the score floor."""
+    import torch
+    from repro_torch.kernels import assoc_score as kas
+    routes = dict(kas.ROUTE_LAUNCHES)
+    got = kas.assoc_score(*lanes, *tot, coefs=coefs)
+    route = next(r for r, n in kas.ROUTE_LAUNCHES.items() if n != routes[r])
+    exp = kas.score_body(*lanes, *tot, coefs)
+    if not torch.equal(got.view(torch.int32), exp.view(torch.int32)):
+        raise AssertionError(f"assoc_score ({label}) differs from score_body")
+    fin = torch.isfinite(exp)
+    err = float((got[fin] - exp[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    totals = torch.stack(tot)
+    launches = {route: (lanes, torch.empty_like(got))}
+    if route == "vec":
+        launches["scalar"] = ([_unaligned(x) for x in lanes],
+                              _unaligned(got))
+    for name, (ls, out) in launches.items():
+        out.fill_(7.0)
+        before = kas.ROUTE_LAUNCHES[name]
+        kas.launch_assoc_score(ls, totals, coefs, out)
+        if kas.ROUTE_LAUNCHES[name] != before + 1:
+            raise AssertionError(f"assoc_score ({label}) missed its {name} "
+                                 f"route")
+        if not torch.equal(out.view(torch.int32), got.view(torch.int32)):
+            raise AssertionError(f"assoc_score ({label}, {name} route) "
+                                 f"differs from the wrapper's launch")
+    ms = _times({name: (lambda ls=ls, out=out: kas.launch_assoc_score(
+        ls, totals, coefs, out)) for name, (ls, out) in launches.items()})
+    C = got.shape[0]
+    n_pos = int((lanes[1] > 0).sum())
+    b_ms, b_by = bound(C * 8 + n_pos * 20 + 8, n_pos * SCORE_OPS_PER_SLOT)
+    y_ms = bound(C * 28, 0)[0]
+    f_ms = floor_ms(floor, n_pos) if floor else None
+    log(f"  assoc_score {label}: C={C}, route {route}, c_ab > 0 at {n_pos} "
+        f"({100 * n_pos / C:.3f}%); bound {b_ms!r} ms ({b_by}, the bytes "
+        f"these inputs need), yardstick {y_ms!r} ms (28 B a slot), score "
+        f"floor x {n_pos} scored {f_ms!r} ms")
+    for name, t in ms.items():
+        log(f"  assoc_score {label}, {name} route: {t!r} ms, "
+            f"{100 * b_ms / t:.2f}% of bound, {100 * y_ms / t:.2f}% of the "
+            f"yardstick" + (f", {100 * f_ms / t:.2f}% of the score floor"
+                            if f_ms else ""))
+    return dict(ms=ms[route], route=route, slots=C, slots_scored=n_pos,
+                bound_ms=b_ms, bound_by=b_by, yardstick_bound_ms=y_ms,
+                score_floor_ms=f_ms, ms_by_route=ms, max_abs_err=err)
+
+
+def score_kernel_code() -> None:
+    """The ``-Xptxas -v`` lines and static SASS counts of both kernels'
+    instances."""
+    for stem, kernel in (("score_gate", "score_gate_tile_kernel"),
+                         ("assoc_score", "assoc_score_tile_kernel")):
+        for line in ptxas_report(stem, kernel):
+            log(f"    ptxas ({stem}): {line}")
+        counts = sass_count(stem, kernel)
+        log(f"    SASS instructions, static ({stem}): "
+            + ("not measured" if counts is None else json.dumps(counts)))
+
+
+def check_score_gate(C: int, dev, floor):
+    """score_gate on the synthetic lanes (~71% of slots pass) under both
+    decay policies (score_gate_report), its wrapper's and plain version's
+    times, ptxas lines and static SASS counts."""
     from repro_torch.core.ranking import RankConfig
     from repro_torch.kernels import ref
-    from repro_torch.kernels.topk_select import (decay_exp2,
-                                                 launch_score_gate,
-                                                 score_gate)
+    from repro_torch.kernels.topk_select import score_gate
     rc = RankConfig()
     gates = dict(min_pair_weight=rc.min_pair_weight,
                  min_src_weight=rc.min_src_weight,
                  min_pair_count=rc.min_pair_count)
     lanes, ok, lt, sc = _score_inputs(C, dev)
-    err = 0.0
-    for half_life in (None, 36.0):
-        got = score_gate(*lanes, ok, lt, *sc, coefs=rc.coefs,
-                         half_life=half_life, **gates)
-        w_eff = lanes[0]
-        if half_life is not None:
-            w_eff = decay_exp2(lanes[0], lt, sc[2], half_life)
-        exp = ref.score_gate_ref(w_eff, *lanes[1:], ok, sc[0], sc[1],
-                                 rc.coefs, **gates)
-        both = torch.isfinite(got) & torch.isfinite(exp)
-        torch.testing.assert_close(got[both], exp[both], rtol=1e-5, atol=1e-6)
-        flips = torch.isneginf(got) != torch.isneginf(exp)
-        near = (w_eff - rc.min_pair_weight).abs() <= 2.0 ** -23 * 0.25
-        n_flips = int(flips.sum())
-        if n_flips != int((flips & near).sum()):
-            raise AssertionError("score_gate: gate masks differ away from "
-                                 "the min_pair_weight boundary")
-        e = float((got[both] - exp[both]).abs().max())
-        err = max(err, e)
-        log(f"  score_gate half_life={half_life}: max_abs_err={e!r} "
-            f"gate flips within 1 ulp of min_pair_weight={n_flips}")
+    rep = {hl: score_gate_report("synthetic lanes", lanes, ok, lt, sc, hl,
+                                 gates, rc.coefs, floor)
+           for hl in (None, 36.0)}
+    score_kernel_code()
     kw = dict(coefs=rc.coefs, half_life=None, **gates)
-    scalars, out = torch.stack(sc), torch.empty_like(lanes[0])
-    ms = time_ms(lambda: launch_score_gate(
-        lanes, ok, None, scalars, rc.coefs, tuple(gates.values()), None, out))
     wrapper_ms = time_ms(lambda: score_gate(*lanes, ok, lt, *sc, **kw))
     plain_ms = time_ms(lambda: ref.score_gate_ref(
         *lanes, ok, sc[0], sc[1], rc.coefs, **gates))
-    b_ms, b_by = bound(C * (6 * 4 + 1 + 4), C * SCORE_OPS_PER_SLOT)
-    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    r, lz = rep[None], rep[36.0]
+    return dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=None, kernel_route=r["route"],
+                slots_pass=r["slots_pass"],
+                yardstick_bound_ms=r["yardstick_bound_ms"],
+                score_floor_ms=r["score_floor_ms"],
+                ms_by_route=r["ms_by_route"], lazy_ms=lz["ms"],
+                lazy_max_abs_err=lz["max_abs_err"],
+                lazy_bound_ms=lz["bound_ms"],
+                lazy_slots_pass=lz["slots_pass"],
+                lazy_gate_flips=lz["gate_flips"])
 
 
-def check_assoc_score(C: int, dev):
-    """The stand-alone assoc_score kernel against score_body at rtol 1e-5,
-    atol 1e-6 (no engine caller: its launches on the main paths are 0)."""
-    import torch
+def check_assoc_score(C: int, dev, floor):
+    """The stand-alone assoc_score kernel on the synthetic lanes
+    (assoc_score_report; no engine caller: its launches on the main paths
+    are 0), its wrapper's and plain version's times."""
     from repro_torch.core.ranking import RankConfig
-    from repro_torch.kernels.assoc_score import (assoc_score,
-                                                 launch_assoc_score,
-                                                 score_body)
+    from repro_torch.kernels.assoc_score import assoc_score, score_body
     coefs = RankConfig().coefs
     lanes, _, _, sc = _score_inputs(C, dev)
-    got = assoc_score(*lanes, sc[0], sc[1], coefs=coefs)
-    exp = score_body(*lanes, sc[0], sc[1], coefs)
-    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-6)
-    err = float((got - exp).abs().max())
-    totals, out = torch.stack(sc[:2]), torch.empty_like(lanes[0])
-    ms = time_ms(lambda: launch_assoc_score(lanes, totals, coefs, out))
+    r = assoc_score_report("synthetic lanes", lanes, sc[:2], coefs, floor)
     wrapper_ms = time_ms(lambda: assoc_score(*lanes, sc[0], sc[1],
                                              coefs=coefs))
     plain_ms = time_ms(lambda: score_body(*lanes, sc[0], sc[1], coefs))
-    b_ms, b_by = bound(C * 7 * 4, C * SCORE_OPS_PER_SLOT)
-    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=None, kernel_route=r["route"],
+                slots_scored=r["slots_scored"],
+                yardstick_bound_ms=r["yardstick_bound_ms"],
+                score_floor_ms=r["score_floor_ms"],
+                ms_by_route=r["ms_by_route"])
+
+
+def check_score_path_lanes(call, tick, floor):
+    """score_gate and assoc_score on the lanes the hash path's rank cycle of
+    ``tick`` passed score_gate (an untimed replay): score_gate_report on
+    them, and assoc_score_report on the same six lanes."""
+    import torch
+    a, kw = call
+    w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c = a
+    if kw.get("decay_cfg") is not None:
+        raise AssertionError("the hash cell runs the sweep policy")
+    total_w, total_c = (x.to(torch.float32).reshape(())
+                        for x in (total_w, total_c))
+    lanes = (w_ab, c_ab, w_a, w_b, c_a, c_b)
+    gates = dict(min_pair_weight=kw["min_pair_weight"],
+                 min_src_weight=kw["min_src_weight"],
+                 min_pair_count=kw["min_pair_count"])
+    label = f"hash path lanes, tick {tick}"
+    sc = [total_w, total_c, total_w.new_zeros(())]
+    sg = score_gate_report(label, lanes, ok, None, sc, None, gates,
+                           kw["coefs"], floor)
+    asc = assoc_score_report(label, lanes, [total_w, total_c], kw["coefs"],
+                             floor)
+    return {"score_gate": sg, "assoc_score": asc}
 
 
 def region_rank_routes(label, lanes, ok, lt, sc, K, half_life, gates,
@@ -410,15 +629,15 @@ def sass_count(stem: str, kernel: str):
     return out
 
 
-def check_region_rank(R: int, W: int, K: int, dev):
+def check_region_rank(R: int, W: int, K: int, dev, floor):
     """region_rank's two routes with and without in-kernel decay against
     the plain version on a synthetic grid (72% of slots pass), both timed
     by their bare launches against the bytes this grid needs
-    (:func:`region_rank_bound`) and against the yardstick of 17 B a slot
+    (:func:`region_rank_bound`), against the yardstick of 17 B a slot
     (21 B under the lazy policy) that every slot would need were it all
-    read; fails unless the row route is the faster. Prints each kernel's
-    ptxas lines and static SASS count beside assoc_score's (one score a
-    slot)."""
+    read, and against the score floor times the slots scored; fails unless
+    the row route is the faster. Prints each kernel's ptxas lines and
+    static SASS count."""
     import numpy as np
     import torch
     from repro_torch.core.ranking import RankConfig
@@ -455,16 +674,18 @@ def check_region_rank(R: int, W: int, K: int, dev):
     for half_life in (None, 36.0):
         n_pass, bm, b_by = bnd[half_life]
         ym = yard[half_life]
+        fm = floor_ms(floor, n_pass)
         log(f"  region_rank synthetic grid ({R}x{W}, K={K}), half_life="
             f"{half_life}: {n_pass} slots pass "
             f"({100 * n_pass / (R * W):.2f}%); bound {bm!r} ms ({b_by}), "
             f"yardstick at every slot's {21 if half_life else 17} B "
-            f"{ym!r} ms")
+            f"{ym!r} ms, score floor x {n_pass} scored {fm!r} ms")
         for kroute in ("row", "warp"):
             t = ms[half_life][kroute]
             log(f"  region_rank {kroute} route, synthetic grid, "
                 f"half_life={half_life}: {t!r} ms, {100 * bm / t:.2f}% of "
-                f"bound, {100 * ym / t:.2f}% of the yardstick")
+                f"bound, {100 * ym / t:.2f}% of the yardstick, "
+                f"{100 * fm / t:.2f}% of the score floor")
     _, b_ms, b_by = bnd[None]
     _, lazy_b_ms, _ = bnd[36.0]
     if not ms[None]["row"] < ms[None]["warp"]:
@@ -478,12 +699,10 @@ def check_region_rank(R: int, W: int, K: int, dev):
                         ("warp", "region_rank_kernel")):
         for line in ptxas_report("region_rank", entry):
             log(f"    ptxas ({stem} route): {line}")
-    # the engine's instances (W 128, K 8) and assoc_score's kernel, whose
-    # body is one score a slot
+    # the engine's instances (W 128, K 8)
     for what, stem, kernel in (
             ("row route", "region_rank", "region_rank_row_kernelILi4ELi8E"),
-            ("warp route", "region_rank", "region_rank_kernelILi4E"),
-            ("assoc_score", "assoc_score", "assoc_score_kernel")):
+            ("warp route", "region_rank", "region_rank_kernelILi4E")):
         counts = sass_count(stem, kernel)
         n = "not measured" if counts is None else sum(counts.values())
         log(f"    SASS instructions, static ({what}): {n}")
@@ -497,10 +716,11 @@ def check_region_rank(R: int, W: int, K: int, dev):
                 warp_route_ms=ms[None]["warp"], lazy_ms=ms[36.0]["row"],
                 lazy_warp_route_ms=ms[36.0]["warp"], lazy_bound_ms=lazy_b_ms,
                 lazy_yardstick_bound_ms=yard[36.0],
-                lazy_slots_pass=bnd[36.0][0])
+                lazy_slots_pass=bnd[36.0][0],
+                score_floor_ms=floor_ms(floor, bnd[None][0]))
 
 
-def check_region_rank_path_grid(call, tick):
+def check_region_rank_path_grid(call, tick, floor):
     """region_rank's two routes on the grid the region path's rank cycle of
     ``tick`` passed it (an untimed replay): the live and passing slots, each
     route against the plain version, both timed against the bytes that data
@@ -529,12 +749,13 @@ def check_region_rank_path_grid(call, tick):
     b_ms, b_by = region_rank_bound(ok, w_a, en, K, gates["min_src_weight"],
                                    False)
     y_ms = bound(R * W + n_ok * 16 + R * (8 + K * 8 + 4), 0)[0]
+    f_ms = floor_ms(floor, n_pass)
     log(f"  region_rank {label}: {R}x{W}, K={K}, {n_ok} slots live "
         f"({100 * n_ok / (R * W):.3f}%), {n_pass} pass "
         f"({100 * n_pass / (R * W):.3f}%), {rows_free} rows with no live "
         f"slot, {src_rows} rows whose source passes; bound {b_ms!r} ms "
         f"({b_by}), yardstick (every gate byte, 16 B a live slot) "
-        f"{y_ms!r} ms")
+        f"{y_ms!r} ms, score floor x {n_pass} scored {f_ms!r} ms")
     for kroute in ("row", "warp"):
         log(f"  region_rank {kroute} route, {label}: {ms[kroute]!r} ms, "
             f"{100 * b_ms / ms[kroute]:.2f}% of that data's bound, "
@@ -542,7 +763,8 @@ def check_region_rank_path_grid(call, tick):
     return dict(rows=R, width=W, k=K, slots_live=n_ok, slots_pass=n_pass,
                 rows_without_live_slot=rows_free, rows_source_pass=src_rows,
                 row_ms=ms["row"], warp_ms=ms["warp"], bound_ms=b_ms,
-                bound_by=b_by, yardstick_bound_ms=y_ms, max_abs_err=err)
+                bound_by=b_by, yardstick_bound_ms=y_ms, score_floor_ms=f_ms,
+                max_abs_err=err)
 
 
 def chain_find_sweep(kh, kl, batch, kroute, out):
@@ -1068,10 +1290,13 @@ def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
     torch.cuda.reset_peak_memory_stats()
     by_route = dict(ktk.ROUTE_LAUNCHES)
     rr_route = dict(ktk.REGION_ROUTE_LAUNCHES)
+    sg_route = dict(ktk.SCORE_ROUTE_LAUNCHES)
     eng, step_ms, cycle_ms, results, launches = main_path(dev, ticks, layout)
     by_route = {r: n - by_route[r] for r, n in ktk.ROUTE_LAUNCHES.items()}
     rr_route = {r: n - rr_route[r]
                 for r, n in ktk.REGION_ROUTE_LAUNCHES.items()}
+    sg_route = {r: n - sg_route[r]
+                for r, n in ktk.SCORE_ROUTE_LAUNCHES.items()}
     st = eng.state
     q = st.qstore
     qstore = q._replace(key_hi=q.key_hi.clone(), key_lo=q.key_lo.clone(),
@@ -1081,7 +1306,11 @@ def run_main_path(dev, ticks, extra_tick, scfg, layout, stream):
     Q, C = cfg.query_capacity, cfg.cooc_capacity
     live_q, live_c = int(st.qstore.live_count()), int(st.cooc.live_count())
     log(f"  {layout} launches on the main path: {launches}; bucket_topk "
-        f"by route {by_route}; region_rank by route {rr_route}")
+        f"by route {by_route}; region_rank by route {rr_route}; score_gate "
+        f"by route {sg_route}")
+    if sg_route["vec"] != launches["score_gate"]:
+        raise AssertionError(f"{layout} score_gate launches by route: "
+                             f"{sg_route}")
     if by_route["row"] != launches["bucket_topk"]:
         raise AssertionError(f"{layout} bucket_topk launches by route: "
                              f"{by_route}")
@@ -1381,6 +1610,41 @@ def last_region_rank_call(dev, ticks):
     if len(calls) != len(ranked) or not ranked:
         raise AssertionError(f"region replay: {len(calls)} region_rank "
                              f"calls in {len(ranked)} rank cycles")
+    return last["call"], ranked[-1]
+
+
+def last_score_gate_call(dev, ticks, eng_out=None):
+    """An untimed replay of the hash path's ticks that keeps what its last
+    score_gate call was given (ops.score_gate's arguments, cloned), at the
+    last rank cycle. Returns (args, kwargs, the tick of that rank cycle);
+    ``eng_out`` (a list), if given, receives the replay's engine."""
+    import torch
+    from repro_torch.core.engine import SearchAssistanceEngine
+    from repro_torch.kernels import ops as kops
+    cfg, _ = deployment_config("hash")
+    calls, ranked, last = [], [], {}
+    score_gate = kops.score_gate
+
+    def spy(*a, **kw):
+        calls.append(1)
+        last.update(call=(tuple(t.clone() if torch.is_tensor(t) else t
+                                for t in a), dict(kw)))
+        return score_gate(*a, **kw)
+
+    kops.score_gate = spy
+    try:
+        eng = SearchAssistanceEngine(cfg, device=dev)
+        for events, tweets in ticks:
+            res = eng.step(events, tweets)
+            if res:
+                ranked.append(res["tick"])
+    finally:
+        kops.score_gate = score_gate
+    if len(calls) != len(ranked) or not ranked:
+        raise AssertionError(f"hash replay: {len(calls)} score_gate calls in "
+                             f"{len(ranked)} rank cycles")
+    if eng_out is not None:
+        eng_out.append(eng)
     return last["call"], ranked[-1]
 
 
@@ -1810,20 +2074,69 @@ def profile_region() -> None:
     profile_tick(eng, ticks[17], "region")
 
 
+def profile_hash() -> None:
+    """The hash cell's 17 ticks (score_gate's last arguments kept by a spy),
+    then one more ingest tick and one rank cycle under the profiler, then
+    score_gate's and assoc_score's bare launches timed on the synthetic
+    lanes and on those kept lanes, on the ``repro_torch`` package on the
+    path (launch signatures shared with the parent trees)."""
+    import torch
+    import repro_torch
+    from repro_torch.core.ranking import RankConfig
+    from repro_torch.data.stream import SyntheticStream
+    from repro_torch.kernels import assoc_score as kas
+    from repro_torch.kernels import topk_select as ktk
+    dev = torch.device("cuda")
+    log(f"profile hash: {card_line()} | package "
+        f"{Path(repro_torch.__file__).parent}")
+    cfg, scfg = deployment_config("hash")
+    stream = SyntheticStream(scfg, seed=SEED)
+    ticks = [stream.gen_tick(t) for t in range(18)]
+    eng = []
+    (a, kw), tick = last_score_gate_call(dev, ticks[:17], eng)
+    profile_tick(eng[0], ticks[17], "hash")
+    del eng
+    rc = RankConfig()
+    gates = (rc.min_pair_weight, rc.min_src_weight, rc.min_pair_count)
+    syn, ok, lt, sc = _score_inputs(cfg.cooc_capacity, dev)
+    cases = {"synthetic lanes": (syn, ok, torch.stack(sc)),
+             f"hash path lanes, tick {tick}": (a[:6], a[6], torch.stack(
+                 [x.to(torch.float32).reshape(()) for x in a[7:9]]
+                 + [torch.zeros((), device=dev)]))}
+    for label, (lanes, g, scalars) in cases.items():
+        out = torch.empty_like(lanes[0])
+        ms = {"score_gate": time_ms(lambda: ktk.launch_score_gate(
+            lanes, g, None, scalars, kw["coefs"], gates, None, out))}
+        if label == "synthetic lanes":
+            ms["score_gate lazy"] = time_ms(lambda: ktk.launch_score_gate(
+                lanes, g, lt.data_ptr(), scalars, kw["coefs"], gates, 36.0,
+                out))
+        ms["assoc_score"] = time_ms(lambda: kas.launch_assoc_score(
+            lanes, scalars[:2], kw["coefs"], out))
+        log(f"  profile hash, bare launches on the {label}: "
+            + ", ".join(f"{k} {v!r} ms" for k, v in ms.items()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-region-only", action="store_true",
                     help="profile the region cell's ingest tick and rank "
                          "cycle, and nothing else")
+    ap.add_argument("--profile-hash-only", action="store_true",
+                    help="profile the hash cell's ingest tick and rank "
+                         "cycle and time score_gate and assoc_score, and "
+                         "nothing else")
     ap.add_argument("--root", default=str(ROOT),
-                    help="with --profile-region-only: a directory inside "
-                         "this checkout whose src/repro_torch is profiled")
+                    help="with --profile-region-only or --profile-hash-only:"
+                         " a directory inside this checkout whose "
+                         "src/repro_torch is profiled")
     args = ap.parse_args()
     root = Path(args.root).resolve()
-    if root != ROOT and not (args.profile_region_only
-                             and root.is_relative_to(ROOT)):
+    profile = args.profile_region_only or args.profile_hash_only
+    if root != ROOT and not (profile and root.is_relative_to(ROOT)):
         print("chip_smoke: --root takes a directory inside this checkout, "
-              "with --profile-region-only", file=sys.stderr)
+              "with --profile-region-only or --profile-hash-only",
+              file=sys.stderr)
         return 2
     if not (root / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1836,6 +2149,9 @@ def main() -> int:
     sys.path.insert(0, str(root / "src"))
     if args.profile_region_only:
         profile_region()
+    if args.profile_hash_only:
+        profile_hash()
+    if profile:
         return 0
     from repro_torch import kernels as tk
     from repro_torch.kernels import build
@@ -1872,10 +2188,12 @@ def main() -> int:
     rows["decay_prune_multi"] = check_decay_prune(C, 6, dev)
     q_row = check_decay_prune(Q, 2, dev)
     log(f"  decay_prune_multi qstore C={Q}: {json.dumps(q_row)}")
-    rows["score_gate"] = check_score_gate(C, dev)
+    floor = score_floor()
+    rows["score_gate"] = check_score_gate(C, dev, floor)
     rows["bucket_topk"] = check_bucket_topk(R, L, K, dev)
-    rows["region_rank"] = check_region_rank(C // RW, RW, min(K, RW), dev)
-    rows["assoc_score"] = check_assoc_score(C, dev)
+    rows["region_rank"] = check_region_rank(C // RW, RW, min(K, RW), dev,
+                                            floor)
+    rows["assoc_score"] = check_assoc_score(C, dev, floor)
     for name, row in rows.items():
         log(f"  {name} at its main-path shape: {json.dumps(row)}")
     torch.cuda.empty_cache()
@@ -1937,9 +2255,20 @@ def main() -> int:
     log("[2] region_rank at the region path's own grid (untimed replay of "
         "its ticks, the last rank cycle)")
     call, tick = last_region_rank_call(dev, ticks)
-    rows["region_rank"]["path_grid"] = check_region_rank_path_grid(call, tick)
+    rows["region_rank"]["path_grid"] = check_region_rank_path_grid(
+        call, tick, floor)
     log(f"  region_rank at the region path's grid: "
         f"{json.dumps(rows['region_rank']['path_grid'])}")
+    del call
+    torch.cuda.empty_cache()
+    log("[2] score_gate and assoc_score on the hash path's own lanes "
+        "(untimed replay of its ticks, the last rank cycle)")
+    call, tick = last_score_gate_call(dev, ticks)
+    path_lanes = check_score_path_lanes(call, tick, floor)
+    for name in ("score_gate", "assoc_score"):
+        rows[name]["path_lanes"] = path_lanes[name]
+        log(f"  {name} at the hash path's lanes: "
+            f"{json.dumps(path_lanes[name])}")
     del call
     torch.cuda.empty_cache()
     log("[2] bucket_topk at the main paths' own grids (untimed replays of "

@@ -9,13 +9,15 @@ operations in the same order.
 
 :func:`assoc_score` is the JAX package's stand-alone Pallas kernel (the
 four scores and their combination over full lanes, no gates, no decay):
-``csrc/assoc_score.cu`` on CUDA tensors, :func:`score_body` on CPU tensors.
-Neither package's engine calls it.
+``csrc/assoc_score.cu`` on CUDA tensors (gate first, as ``score_gate``: only
+slots with ``c_ab > 0`` run the body, every other slot takes its value on
+zeros), :func:`score_body` on CPU tensors. Neither package's engine calls
+it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -88,6 +90,20 @@ def _entry():
     return fn
 
 
+# The load routes of this kernel and score_gate's (csrc/score_tile.cuh):
+# "vec", 16-byte loads and stores where every base is 16-byte aligned (a
+# ragged last tile still runs slot by slot); "scalar", 4-byte ones
+# everywhere.
+ROUTE_LAUNCHES: Dict[str, int] = {"vec": 0, "scalar": 0}
+
+
+def score_route(*ptrs: int) -> str:
+    """The assoc_score and score_gate kernels' route for these base
+    addresses (every lane's, the gate's and the output's): ``"vec"`` where
+    all are 16-byte aligned, else ``"scalar"``."""
+    return "vec" if all(p % 16 == 0 for p in ptrs) else "scalar"
+
+
 def assoc_score(w_ab, c_ab, w_a, w_b, c_a, c_b, total_w, total_c, *,
                 coefs: Tuple[float, float, float, float]) -> torch.Tensor:
     """Combined association score per slot over f32[C] lanes (no gates, no
@@ -110,10 +126,14 @@ def assoc_score(w_ab, c_ab, w_a, w_b, c_a, c_b, total_w, total_c, *,
 def launch_assoc_score(lanes, totals, coefs, out) -> None:
     """Launch the assoc_score kernel into ``out``, counting it. The bare
     launch under :func:`assoc_score`, which checks the lanes and stacks
-    ``totals`` (f32[2]: total_w, total_c)."""
+    ``totals`` (f32[2]: total_w, total_c). The kernel takes the load route
+    :func:`score_route` names for these bases."""
+    if out.shape[0] == 0:
+        return                      # C = 0: nothing to launch
     c0, c1, c2, c3 = (float(c) for c in coefs)
     code = _entry()(*[t.data_ptr() for t in lanes], totals.data_ptr(),
                     c0, c1, c2, c3, out.data_ptr(), out.shape[0],
                     torch.cuda.current_stream(out.device).cuda_stream)
     check_launch(code, "assoc_score")
     LAUNCHES["assoc_score"] += 1
+    ROUTE_LAUNCHES[score_route(*(t.data_ptr() for t in (*lanes, out)))] += 1

@@ -3,8 +3,9 @@ region pass.
 
 Port of the JAX package's ``kernels/topk_select.py`` (``score_gate``,
 ``bucket_topk`` and ``region_rank``). On CUDA tensors the wrappers launch
-``csrc/score_gate.cu``, ``csrc/bucket_topk.cu`` and ``csrc/region_rank.cu``
-(each of the last two on one of two routes, :func:`kernel_route`);
+``csrc/score_gate.cu`` (on one of two load routes, :func:`score_route`),
+``csrc/bucket_topk.cu`` and ``csrc/region_rank.cu`` (each on one of two
+routes, :func:`kernel_route`);
 on CPU tensors they run the plain versions in ``ref.py``. The kernels take
 any capacity and any row count, so the Pallas version's tile padding is
 gone.
@@ -17,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import LAUNCHES, check_launch, ref, route
+from .assoc_score import score_route
 from .build import load
 
 
@@ -121,8 +123,12 @@ def launch_score_gate(lanes, ok, lt_ptr, scalars, coefs, gates, half_life,
 
     The bare launch under :func:`score_gate`, which checks the lanes and
     stacks ``scalars`` (f32[3]: total_w, total_c, now); ``lt_ptr`` is the
-    ``last_tick`` lane's pointer, or None without ``half_life``.
+    ``last_tick`` lane's pointer, or None without ``half_life``. The kernel
+    takes the load route :func:`score_route` names for these bases: a view
+    whose base is not 16-byte aligned (``lane[1:]``) takes the 4-byte one.
     """
+    if out.shape[0] == 0:
+        return                      # C = 0: nothing to launch
     c0, c1, c2, c3 = (float(c) for c in coefs)
     code = _score_gate_entry()(
         *[t.data_ptr() for t in lanes], ok.data_ptr(), lt_ptr,
@@ -131,6 +137,14 @@ def launch_score_gate(lanes, ok, lt_ptr, scalars, coefs, gates, half_life,
         out.shape[0], torch.cuda.current_stream(out.device).cuda_stream)
     check_launch(code, "score_gate")
     LAUNCHES["score_gate"] += 1
+    ptrs = [t.data_ptr() for t in (*lanes, ok, out)]
+    if half_life is not None:
+        ptrs.append(lt_ptr)
+    SCORE_ROUTE_LAUNCHES[score_route(*ptrs)] += 1
+
+
+# score_gate's launches by load route (assoc_score.score_route names it).
+SCORE_ROUTE_LAUNCHES: Dict[str, int] = {"vec": 0, "scalar": 0}
 
 
 # bucket_topk's two kernel routes (csrc/bucket_topk.cu), chosen by K:

@@ -80,6 +80,42 @@ def test_decay_prune_multi_cuda_matches_plain(cuda, C):
         decay_prune_multi(args[0], args[1], args[2] * 2, args[3], 0.8, 0.3)
 
 
+def _score_lanes(C, seed, live):
+    """Six score lanes, base gate and last_tick as numpy: ~71% of slots pass
+    at ``live`` 0.8 (the synthetic lanes), ~1.4% at 0.014 (a store)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda s: (rng.random(C) * s).astype(np.float32)
+    w_ab, c_ab = mk(5), np.floor(mk(20))
+    w_a, w_b = mk(50), mk(50)
+    c_a = np.maximum(c_ab, np.floor(mk(100)))
+    c_b = np.maximum(c_ab, np.floor(mk(100)))
+    ok = rng.random(C) < live
+    c_ab[~ok & (rng.random(C) < 0.9)] = 0.0       # dead slots: no count
+    lt = rng.integers(0, 20, C).astype(np.int32)
+    return (w_ab, c_ab, w_a, w_b, c_a, c_b), ok, lt
+
+
+def _on_card(x, cuda, offset):
+    """``x`` on the card; at ``offset`` 1 a view one element into a buffer,
+    so its base is not 16-byte aligned."""
+    x = _t(x, cuda)
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    buf[1:] = x
+    return buf[1:]
+
+
+def _assert_gated_equal(got, exp, w_eff):
+    """Bit-equal wherever the gates agree; the lazy gate may flip only
+    where w_eff sits within 1 ulp of min_pair_weight."""
+    flips = torch.isneginf(got) != torch.isneginf(exp)
+    near = (w_eff - GATES["min_pair_weight"]).abs() <= 2.0 ** -23 * 0.25
+    assert bool((~flips | near).all())
+    assert torch.equal(got[~flips].view(torch.int32),
+                       exp[~flips].view(torch.int32))
+
+
 @pytest.mark.parametrize("half_life", [None, 6.0])
 def test_score_gate_cuda_matches_plain(cuda, half_life):
     rng = np.random.default_rng(9)
@@ -101,12 +137,43 @@ def test_score_gate_cuda_matches_plain(cuda, half_life):
         w_eff = decay_exp2(w_eff, lt, sc[2], half_life)
     exp = ref.score_gate_ref(w_eff, *lanes[1:], ok, sc[0], sc[1], COEFS,
                              **GATES)
-    both = torch.isfinite(got) & torch.isfinite(exp)
-    torch.testing.assert_close(got[both], exp[both], rtol=1e-5, atol=1e-6)
-    flips = (torch.isneginf(got) != torch.isneginf(exp))
-    # the lazy gate may flip only where w_eff sits within 1 ulp of the gate
-    near = (w_eff - GATES["min_pair_weight"]).abs() <= 2.0 ** -23 * 0.25
-    assert bool((~flips | near).all())
+    _assert_gated_equal(got, exp, w_eff)
+
+
+@pytest.mark.parametrize("half_life", [None, 6.0])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("live", [0.014, 0.8])
+@pytest.mark.parametrize("C", [0, 1, 4095, 4099, 3 * 4096 + 17])
+def test_score_gate_cuda_tiles_and_routes(cuda, C, live, offset, half_life):
+    """Ragged and empty capacities, a store-like 1.4% base gate, and bases
+    one element off 16-byte alignment (the 4-byte route): the wrapper and
+    its bare launch into a buffer of 7.0s (every slot written) bit-equal to
+    the plain version."""
+    lanes_np, ok_np, lt_np = _score_lanes(C, C + 7, live)
+    lanes = [_on_card(x, cuda, offset) for x in lanes_np]
+    ok = _on_card(ok_np, cuda, offset)
+    lt = _on_card(lt_np, cuda, offset)
+    sc = [torch.tensor(x, dtype=torch.float32, device=cuda)
+          for x in (1e4, 2e4, 25.0)]
+    before = tk.LAUNCHES["score_gate"]
+    routes = dict(ktk.SCORE_ROUTE_LAUNCHES)
+    got = score_gate(*lanes, ok, lt, *sc, coefs=COEFS, half_life=half_life,
+                     **GATES)
+    assert got.shape == (C,)
+    assert tk.LAUNCHES["score_gate"] == before + (C > 0)
+    kroute = "scalar" if offset else "vec"
+    assert ktk.SCORE_ROUTE_LAUNCHES[kroute] == routes[kroute] + (C > 0)
+    w_eff = lanes[0]
+    if half_life is not None:
+        w_eff = decay_exp2(w_eff, lt, sc[2], half_life)
+    exp = ref.score_gate_ref(w_eff, *lanes[1:], ok, sc[0], sc[1], COEFS,
+                             **GATES)
+    _assert_gated_equal(got, exp, w_eff)
+    lt_ptr = None if half_life is None else lt.data_ptr()
+    out = torch.full_like(got, 7.0)
+    ktk.launch_score_gate(lanes, ok, lt_ptr, torch.stack(sc), COEFS,
+                          tuple(GATES.values()), half_life, out)
+    assert torch.equal(out.view(torch.int32), got.view(torch.int32))
 
 
 @pytest.mark.parametrize("shape,k,kind", [
@@ -316,8 +383,41 @@ def test_assoc_score_cuda_matches_plain(cuda):
     before = tk.LAUNCHES["assoc_score"]
     got = assoc_score(*lanes, *sc, coefs=COEFS)
     assert tk.LAUNCHES["assoc_score"] == before + 1
-    torch.testing.assert_close(got, score_body(*lanes, *sc, COEFS),
-                               rtol=1e-5, atol=1e-6)
+    exp = score_body(*lanes, *sc, COEFS)
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("live", [0.014, 0.8])
+@pytest.mark.parametrize("C", [0, 1, 4095, 4099, 3 * 4096 + 17])
+def test_assoc_score_cuda_tiles_and_routes(cuda, C, live, offset):
+    """As the score_gate case: the wrapper and its bare launch bit-equal to
+    score_body on either route, with 0, -0.0, -1 and NaN in c_ab and inf/NaN
+    in the other lanes of those slots, which the gate skips."""
+    from repro_torch.kernels import assoc_score as kas
+    lanes_np, _, _ = _score_lanes(C, C + 11, live)
+    rng = np.random.default_rng(C)
+    odd = rng.random(C) < 0.05
+    lanes_np[1][odd] = rng.choice(np.array([0.0, -0.0, -1.0, np.nan],
+                                           np.float32), int(odd.sum()))
+    for x in (lanes_np[0], *lanes_np[2:]):
+        x[odd] = rng.choice(np.array([np.inf, -np.inf, np.nan, 1.0],
+                                     np.float32), int(odd.sum()))
+    lanes = [_on_card(x, cuda, offset) for x in lanes_np]
+    sc = [torch.tensor(x, dtype=torch.float32, device=cuda)
+          for x in (1e4, 2e4)]
+    before = tk.LAUNCHES["assoc_score"]
+    routes = dict(kas.ROUTE_LAUNCHES)
+    got = assoc_score(*lanes, *sc, coefs=COEFS)
+    assert got.shape == (C,)
+    assert tk.LAUNCHES["assoc_score"] == before + (C > 0)
+    kroute = "scalar" if offset else "vec"
+    assert kas.ROUTE_LAUNCHES[kroute] == routes[kroute] + (C > 0)
+    exp = score_body(*lanes, *sc, COEFS)
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    out = torch.full_like(got, 7.0)
+    kas.launch_assoc_score(lanes, torch.stack(sc), COEFS, out)
+    assert torch.equal(out.view(torch.int32), got.view(torch.int32))
 
 
 ED_ROUTE = {1.0: "half", 1.5: "half", 1.3: "f32"}
