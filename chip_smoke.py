@@ -98,7 +98,29 @@ Phases, each of which must pass:
      over prompt + decoded tokens (T 8208) whose logits must match the
      prefill's last chunk and every decode step; then the model in f32
      (TF32 off), B 1: prefill and 4 decode steps against the kernel
-     forward at a bound a bf16 computation fails.
+     forward at a bound a bf16 computation fails;
+  7. crash recovery at deployment scale, under the hash and then the
+     region layout (the phase-4 configuration and stream, seed 0): 21
+     ticks, each appended to a ``FirehoseLogWriter`` (4 ticks a segment)
+     before ``step``, ``save_snapshot`` into a ``CheckpointManager``
+     (``full_interval=2``) at the rank cycles of ticks 8 and 16 (a full,
+     then a delta); the state after tick 19 kept as the reference (host
+     copies); tick 20 appended and torn by ``kill_writer_mid_segment``;
+     then ``recover_engine`` from the newest chain (3 ticks replayed) and
+     from the full alone (11 ticks), each bit for bit against the
+     reference, leaf for leaf, its handoff rank cycle's suggestions equal
+     to a rank cycle on the reference. Printed per layout: snapshot bytes
+     (raw and on disk), the save split (device-to-host copy,
+     ``diff_leading_rows``, ``savez``, raw sha256, zlib, file sha256,
+     write and fsync) against the 80-s rank period, the restore split
+     (read, sha256, zlib, raw sha256, npz load, delta apply, host-to-device
+     copy), replay ms a tick and its multiple of real time (10-s ticks),
+     time to fresh (restore + replay + handoff rank), peak device memory
+     and the kernels' launches on the recovery path (counts set to 0
+     before each recovery and read after; each of the layout's kernels
+     must launch). Then ``repro_torch.breaking_news`` on the card: the
+     related terms must surface within 10 sim-minutes and survive the
+     crash.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -2056,6 +2078,200 @@ def run_lm(dev, rows):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: crash recovery at deployment scale.
+# ---------------------------------------------------------------------------
+
+RECOVERY_TICKS = 21          # ticks 0..19 stepped, tick 20 torn by the crash
+RECOVERY_TPS = 4             # ticks per log segment
+
+
+def arrays_bits_equal(a, b) -> bool:
+    """Two ``state_arrays()`` dicts, leaf for leaf, byte for byte."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def recovery_cell(dev, ticks, layout, root: Path):
+    """Phase 7 for one cooc layout: a live run that logs every tick and
+    snapshots at each rank cycle (full, then delta), a crash that tears
+    tick 20, then two recoveries (the newest chain; the full alone) held
+    bit for bit against the state after tick 19, with equal suggestions.
+    Returns (report dict, the recoveries' summed launch counts)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.engine import SearchAssistanceEngine
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    from repro_torch.streaming import (FirehoseLogReader, FirehoseLogWriter,
+                                       ReplayConfig, kill_writer_mid_segment,
+                                       recover_engine)
+    cfg, scfg = deployment_config(layout)
+    ckpt = CheckpointManager(str(root / "ckpt"), keep_n=0, full_interval=2)
+    log_dir = str(root / "log")
+    writer = FirehoseLogWriter(log_dir, ticks_per_segment=RECOVERY_TPS)
+    eng = SearchAssistanceEngine(cfg, device=dev)
+    saves, step_ms = [], []
+    for t, (events, tweets) in enumerate(ticks[:RECOVERY_TICKS - 1]):
+        writer.append(t, events, tweets)
+        t0 = time.perf_counter()
+        out = eng.step(events, tweets)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if out is None:
+            continue
+        t0 = time.perf_counter()
+        eng.save_snapshot(ckpt)
+        wall = (time.perf_counter() - t0) * 1e3
+        saves.append({"step": int(eng.state.tick),
+                      "kind": ckpt.last_save_kind,
+                      "raw_bytes": ckpt.last_save_raw_bytes,
+                      "disk_bytes": ckpt.last_save_bytes, "wall_ms": wall,
+                      "split_ms": ckpt.last_save_ms})
+    if [s["kind"] for s in saves] != ["full", "delta"]:
+        raise AssertionError(f"{layout} snapshots: {saves}")
+    reference = eng.state_arrays()           # host copies of the card state
+    del eng
+    torch.cuda.empty_cache()
+    writer.append(RECOVERY_TICKS - 1, *ticks[RECOVERY_TICKS - 1])
+    torn = kill_writer_mid_segment(writer)
+    reader = FirehoseLogReader(log_dir)
+    if torn is None or reader.last_tick() != RECOVERY_TICKS - 2 or \
+            reader.n_unmanifested_files != 1:
+        raise AssertionError(f"{layout} torn tail: {torn}, head "
+                             f"{reader.last_tick()}")
+    ref = SearchAssistanceEngine(cfg, device=dev)
+    ref.load_state_arrays(reference)
+    ref.run_rank_cycle()
+    ref_suggestions = ref.suggestions
+    del ref
+    torch.cuda.empty_cache()
+    full_step = saves[0]["step"]
+    launches = {n: 0 for n in tk.KERNELS}
+    runs = {}
+    for label, step, tail in (("a", None, RECOVERY_TICKS - 1 - saves[1]["step"]),
+                              ("b", full_step, RECOVERY_TICKS - 1 - full_step)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        rec, stats = recover_engine(cfg, ckpt, log_dir, ReplayConfig(),
+                                    step=step, device=dev)
+        torch.cuda.synchronize()
+        fresh_ms = (time.perf_counter() - t0) * 1e3
+        for n, k in tk.LAUNCHES.items():
+            launches[n] += k
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if stats["n_ticks"] != tail or int(rec.state.tick) != \
+                RECOVERY_TICKS - 1:
+            raise AssertionError(f"{layout} recovery ({label}): {stats}")
+        if not arrays_bits_equal(rec.state_arrays(), reference):
+            raise AssertionError(f"{layout} recovery ({label}) differs from "
+                                 f"the uncrashed state")
+        if rec.suggestions != ref_suggestions or not rec.suggestions:
+            raise AssertionError(f"{layout} recovery ({label}): suggestions "
+                                 f"differ from the uncrashed state's")
+        replay_s = stats["wall_s"] - stats["rank_s"]
+        runs[label] = {
+            "restored_step": stats["restored_step"],
+            "chain_len": stats["restore"]["chain_len"],
+            "ticks_replayed": stats["n_ticks"],
+            "time_to_fresh_ms": fresh_ms,
+            "restore_ms": stats["restore_s"] * 1e3,
+            "restore_split_ms": stats["restore_ms"],
+            "replay_ms": replay_s * 1e3,
+            "replay_ms_per_tick": replay_s * 1e3 / stats["n_ticks"],
+            "replay_x_real_time": stats["n_ticks"] * scfg.tick_seconds
+            / replay_s,
+            "rank_ms": stats["rank_s"] * 1e3,
+            "rank_cycles": stats["n_rank_run"],
+            "suggestions": len(rec.suggestions),
+            "peak_mem_gib": peak}
+        del rec
+        torch.cuda.empty_cache()
+    report = {"layout": layout, "live_ms_per_tick_mean":
+              statistics.mean(step_ms), "rank_period_ms":
+              cfg.rank_every * scfg.tick_seconds * 1e3, "saves": saves,
+              "torn": torn, "recoveries": runs,
+              "launches": {n: k for n, k in launches.items() if k}}
+    return report, launches
+
+
+def run_recovery(dev, card: str):
+    """Phase 7: recovery at deployment scale under each cooc layout, then
+    the breaking-news scenario on the card. Returns the recovery path's
+    launch counts (both layouts summed)."""
+    import tempfile
+    import torch
+    from repro_torch import breaking_news
+    from repro_torch import kernels as tk
+    from repro_torch.data.stream import SyntheticStream
+    t_phase = time.perf_counter()
+    _, scfg = deployment_config()
+    stream = SyntheticStream(scfg, seed=SEED)
+    ticks = [stream.gen_tick(t) for t in range(RECOVERY_TICKS)]
+    total = {n: 0 for n in tk.KERNELS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as tmp:
+        for layout in ("hash", "region"):
+            report, launches = recovery_cell(dev, ticks, layout,
+                                             Path(tmp) / layout)
+            missing = [n for n in tk.PATH_KERNELS[layout] if launches[n] <= 0]
+            if missing:
+                raise AssertionError(f"kernels not launched on the {layout} "
+                                     f"recovery path: {missing}")
+            for n, k in launches.items():
+                total[n] += k
+            log(f"[7] {layout} recovery ({card}): " + json.dumps(report))
+            for s in report["saves"]:
+                log(f"  {layout} save step {s['step']} ({s['kind']}): "
+                    f"{s['raw_bytes']} B raw, {s['disk_bytes']} B on disk, "
+                    f"{s['wall_ms']:.3f} ms against a rank period of "
+                    f"{report['rank_period_ms']:.0f} ms; split "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in
+                                s["split_ms"].items()))
+            for label, r in report["recoveries"].items():
+                log(f"  {layout} recovery ({label}) from step "
+                    f"{r['restored_step']} (chain of {r['chain_len']}): "
+                    f"bit-exact, suggestions equal; time to fresh "
+                    f"{r['time_to_fresh_ms']:.3f} ms = restore "
+                    f"{r['restore_ms']:.3f} + replay {r['ticks_replayed']} "
+                    f"ticks {r['replay_ms']:.3f} "
+                    f"({r['replay_ms_per_tick']:.3f} ms a tick, "
+                    f"{r['replay_x_real_time']:.1f}x real time) + rank "
+                    f"{r['rank_ms']:.3f}; restore split "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in
+                                r["restore_split_ms"].items())
+                    + f"; peak {r['peak_mem_gib']:.3f} GiB")
+            log(f"  {layout} recovery launches: {report['launches']}")
+            torch.cuda.empty_cache()
+        log("[7] breaking news on the card (python -m "
+            "repro_torch.breaking_news)")
+        lines = []
+        t0 = time.perf_counter()
+        res = breaking_news.run(dev, out_dir=str(Path(tmp) / "news"),
+                                log=lines.append)
+        wall = time.perf_counter() - t0
+    for line in lines:
+        if "CRASH" in line or ">>>" in line or "breaks at" in line:
+            log("  " + line.strip())
+    rec = res["recovery"]
+    if res["latency_min"] is None or \
+            res["latency_min"] > breaking_news.TARGET_MIN:
+        raise AssertionError(f"breaking news: related terms surfaced after "
+                             f"{res['latency_min']} sim-min")
+    if not res["kept"] or not any(t in dict(res["final"])
+                                  for t in res["event_terms"]):
+        raise AssertionError(f"breaking news: event terms lost across the "
+                             f"crash: {res['final']}")
+    log(f"  breaking news ({card}): surfaced {res['latency_min']} sim-min "
+        f"after the event (target {breaking_news.TARGET_MIN}); crash "
+        f"recovery from step {rec['restored_step']}, {rec['n_ticks']} ticks "
+        f"replayed, {rec['wall_total_s'] * 1e3:.3f} ms wall; kept "
+        f"{res['kept']}; final {res['final']}; scenario {wall:.1f} s")
+    log(f"  recovery phase took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def profile_region() -> None:
     """The region cell's 17 ticks, then one more ingest tick and one rank
     cycle under the profiler, on the ``repro_torch`` package on the path."""
@@ -2291,6 +2507,9 @@ def main() -> int:
 
     # ---- 6. the LM serving path at full width ----
     launches["lm"] = run_lm(dev, rows)
+
+    # ---- 7. crash recovery at deployment scale ----
+    launches["recovery"] = run_recovery(dev, card)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

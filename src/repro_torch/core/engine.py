@@ -19,6 +19,10 @@ Differences from the JAX engine, all deliberate:
 JAX engine's dict (``leaf_0 .. leaf_25`` under the hash layout,
 ``leaf_0 .. leaf_26`` under the region layout, in ``jax.tree.flatten``
 order, JAX dtypes), which is how JAX state becomes port state and back.
+``save_snapshot``/``restore_from_snapshot`` write and read the same leaves
+through ``distributed.fault_tolerance.CheckpointManager`` in the JAX
+package's on-disk format, so a snapshot of either engine restores in the
+other.
 """
 from __future__ import annotations
 
@@ -394,6 +398,13 @@ def _flat_leaves(state: EngineState) -> List[Tuple[torch.Tensor, bool]]:
     return out
 
 
+def _snapshot_leaves(state: EngineState) -> List[torch.Tensor]:
+    """The state's leaves in ``_flat_leaves`` order, u32 lanes viewed as
+    ``torch.uint32`` so a checkpoint stores them as ``uint32``."""
+    return [t.view(torch.uint32) if is_u32 else t
+            for t, is_u32 in _flat_leaves(state)]
+
+
 def _unflatten(state: EngineState, leaves: List[torch.Tensor]) -> EngineState:
     it = iter(leaves)
 
@@ -503,6 +514,50 @@ class SearchAssistanceEngine:
     # ---- serving-side reads ----
     def suggest_fp(self, fp: int, k: int = 8) -> List[Tuple[int, float]]:
         return self.suggestions.get(int(fp), [])[:k]
+
+    # ---- persistence (every rank cycle the leader persists, §4.2) ----
+    def save_snapshot(self, ckpt, extra_meta: Optional[Dict] = None) -> str:
+        """Snapshot = checkpoint + log offset (§4.2 rewind/catch-up).
+
+        The manifest's meta records ``log_tick`` (the first tick a restarted
+        instance replays from the firehose log), ``engine``, ``layout`` and
+        the last maintenance stats. Whether the manager writes a full or a
+        delta against the previous snapshot is its decision
+        (``CheckpointManager.full_interval``). The port has no
+        ``EngineConfig.plan``, so it writes no ``plan`` key.
+        """
+        tick = int(self.state.tick)
+        meta = {"log_tick": tick, "engine": self.name,
+                "layout": self.cfg.cooc_layout}
+        if self.last_maintenance:
+            meta["maintenance"] = self.last_maintenance
+        if extra_meta:
+            meta.update(extra_meta)
+        return ckpt.save(tick, _snapshot_leaves(self.state), meta=meta)
+
+    @classmethod
+    def restore_from_snapshot(cls, cfg: EngineConfig, ckpt,
+                              step: Optional[int] = None, name: str = "rt",
+                              device=None
+                              ) -> Tuple["SearchAssistanceEngine", int]:
+        """Cold-start from the newest (or a given) snapshot, on ``device``
+        (CUDA unless named).
+
+        Returns ``(engine, log_tick)``: ``log_tick`` is the offset to
+        resume replaying the firehose log from. The restore walks the
+        snapshot's delta chain; when a torn or corrupt member forces the
+        fallback to an older intact full (``ckpt.last_restore``), it is
+        that snapshot's offset. A JAX snapshot's ``plan`` meta stays in its
+        manifest unused: a plan changes dispatch only, never results, and
+        the port dispatches every kernel site to its kernel on CUDA.
+        """
+        eng = cls(cfg, name, device)
+        leaves, step = ckpt.restore(_snapshot_leaves(eng.state), step)
+        eng.state = _unflatten(eng.state, [
+            x.view(torch.int32) if x.dtype == torch.uint32 else x
+            for x in leaves])
+        meta = ckpt.manifest(step).get("meta", {})
+        return eng, int(meta.get("log_tick", step))
 
     # ---- state carry-over (the JAX engine's leaf dict) ----
     def state_arrays(self) -> Dict[str, np.ndarray]:

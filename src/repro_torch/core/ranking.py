@@ -1,8 +1,10 @@
 """Association scoring + ranking cycles (paper §2.4, §4.3 "Ranking cycles").
 
 Port of the JAX package's ``core/ranking.py``: the segmented top-k cycle
-:func:`ranking_cycle` over the hash layout, and :func:`ranking_cycle_region`
-over the region layout. Stages of the segmented cycle:
+:func:`ranking_cycle` over the hash layout, :func:`ranking_cycle_region`
+over the region layout, and :func:`ranking_cycle_lexsort`, the
+pre-segmented reference pipeline the other two are held against in the
+tests (the engine does not call it). Stages of the segmented cycle:
 
   1. score and gate every cooc slot against the query-store marginals —
      the ``score_gate`` kernel on CUDA (``kernels/ops``);
@@ -26,7 +28,7 @@ from ..kernels import assoc_score as _as
 from ..kernels import ops as kops
 from . import stores
 from .decay import lazy_decayed
-from .hashing import MASK32, join_fp, to_np_u32
+from .hashing import MASK32, join_fp, to_np_u32, u32
 from .stores import HashTable, RegionTable
 
 
@@ -209,6 +211,85 @@ def ranking_cycle(cooc: HashTable, qstore: HashTable, cfg: RankConfig, *,
                     ).sum(dtype=torch.int32)
     return SuggestionTable(out_src_hi, out_src_lo, out_dst_hi, out_dst_lo,
                            out_score, n_rows, arena_spill + select_spill)
+
+
+def _lexsort(*keys: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort(keys)``: stable, the last key primary."""
+    order = torch.argsort(keys[0], stable=True)
+    for k in keys[1:]:
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
+
+
+def ranking_cycle_lexsort(cooc: HashTable, qstore: HashTable,
+                          cfg: RankConfig, *, decay_cfg=None,
+                          now=None, compact_frac: float = 0.5
+                          ) -> SuggestionTable:
+    """Pre-segmented reference ranking cycle: compact the gate-passing rows
+    by a stable descending-score argsort, group them by a stable 3-key
+    lexsort (src hi, src lo, then descending score) and emit each run's
+    first ``top_k``. Kept for parity tests; the engine does not call it.
+    Its only kernel is ``_score_and_gate``'s ``score_gate`` on CUDA.
+
+    ``compact_frac`` (the JAX ``RankConfig.compact_frac``) keeps the
+    ``compact_frac * capacity`` best rows before the lexsort, cutting the
+    globally lowest-scoring pairs on overflow (counted); >= 1.0 keeps all.
+    """
+    C = cooc.capacity
+    K = cfg.top_k
+    dev = cooc.key_hi.device
+    score, ok, _, keys = _score_and_gate(cooc, qstore, cfg, decay_cfg, now)
+    src_hi, src_lo, dst_hi, dst_lo = keys
+    if compact_frac >= 1.0:
+        M = C
+        c_src_hi, c_src_lo, c_dst_hi, c_dst_lo = keys
+        c_score, c_ok = score, ok
+        n_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        # the M best rows: gate-passing rows (finite score) lead gated ones
+        # (-inf), so an overflow cut drops the globally lowest scores.
+        M = min(C, max(K, int(C * compact_frac)))
+        sel = torch.argsort(-score, stable=True)[:M]
+        c_score = score[sel]
+        c_ok = c_score > -torch.inf
+        ones = torch.full((), -1, dtype=torch.int32, device=dev)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        # filler rows get the all-ones src key: their own run, never emitted
+        c_src_hi = torch.where(c_ok, src_hi[sel], ones)
+        c_src_lo = torch.where(c_ok, src_lo[sel], ones)
+        c_dst_hi = torch.where(c_ok, dst_hi[sel], zero)
+        c_dst_lo = torch.where(c_ok, dst_lo[sel], zero)
+        n_overflow = torch.clamp_min(ok.sum(dtype=torch.int32) - M, 0)
+
+    order = _lexsort(-c_score, u32(c_src_lo), u32(c_src_hi))
+    s_hi, s_lo = c_src_hi[order], c_src_lo[order]
+    s_dhi, s_dlo = c_dst_hi[order], c_dst_lo[order]
+    s_score, s_ok = c_score[order], c_ok[order]
+    prev_hi = torch.cat([s_hi.new_full((1,), -1), s_hi[:-1]])
+    prev_lo = torch.cat([s_lo.new_full((1,), -1), s_lo[:-1]])
+    is_new = (s_hi != prev_hi) | (s_lo != prev_lo)
+    seg_id = torch.cumsum(is_new, 0) - 1
+    starts = is_new.nonzero().squeeze(1)
+    first_idx = torch.zeros((M,), dtype=torch.int64, device=dev)
+    first_idx[seg_id[starts]] = starts
+    pos = torch.arange(M, device=dev) - first_idx[torch.clamp_min(seg_id, 0)]
+
+    head = (is_new & s_ok).nonzero().squeeze(1)
+    out_src_hi = torch.zeros((M,), dtype=torch.int32, device=dev)
+    out_src_lo = torch.zeros((M,), dtype=torch.int32, device=dev)
+    out_src_hi[seg_id[head]] = s_hi[head]
+    out_src_lo[seg_id[head]] = s_lo[head]
+    kept = (s_ok & (pos < K)).nonzero().squeeze(1)
+    r, p = seg_id[kept], pos[kept]
+    out_dst_hi = torch.zeros((M, K), dtype=torch.int32, device=dev)
+    out_dst_lo = torch.zeros((M, K), dtype=torch.int32, device=dev)
+    out_score = torch.zeros((M, K), dtype=torch.float32, device=dev)
+    out_dst_hi[r, p] = s_dhi[kept]
+    out_dst_lo[r, p] = s_dlo[kept]
+    out_score[r, p] = s_score[kept]
+    return SuggestionTable(out_src_hi, out_src_lo, out_dst_hi, out_dst_lo,
+                           out_score, (is_new & s_ok).sum(dtype=torch.int32),
+                           n_overflow)
 
 
 def ranking_cycle_region(cooc: RegionTable, qstore: HashTable,

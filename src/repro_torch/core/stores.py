@@ -816,3 +816,33 @@ def region_lookup(table: RegionTable, qstore: HashTable, src_hi, src_lo,
             v = v * f
         out[name] = torch.where(found, v, torch.zeros_like(v))
     return out, found, found_slot
+
+
+# ---------------------------------------------------------------------------
+# Delta snapshots: dirty-row extraction over host copies of the leaves.
+# ---------------------------------------------------------------------------
+
+def diff_leading_rows(prev: np.ndarray, new: np.ndarray) -> np.ndarray:
+    """The leading indices (slots) where ``new`` differs from ``prev``: the
+    rows a delta snapshot records (the JAX package's function of the same
+    name). A content compare, so it is exact under every policy and layout
+    (an eager sweep rewrites every live weight and the delta grows to
+    match). NaN != NaN only ever adds rows, never loses one."""
+    if prev.shape != new.shape or prev.dtype != new.dtype:
+        raise ValueError(f"diff_leading_rows: {prev.shape} {prev.dtype} "
+                         f"against {new.shape} {new.dtype}")
+    neq = prev != new
+    if neq.ndim > 1:
+        neq = neq.reshape(neq.shape[0], -1).any(axis=1)
+    return np.nonzero(neq)[0].astype(np.int64)
+
+
+def apply_row_delta(base: np.ndarray, idx: np.ndarray,
+                    rows: np.ndarray) -> np.ndarray:
+    """Scatter a delta's changed rows onto the base snapshot's array, in
+    place when it is writable (npz loads are). Inverse of
+    :func:`diff_leading_rows` given the base it was diffed against."""
+    if not base.flags.writeable:
+        base = base.copy()
+    base[idx] = rows
+    return base

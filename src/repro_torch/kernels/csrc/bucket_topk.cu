@@ -11,7 +11,9 @@
 //
 // Both routes take ties to the lowest column and emit -inf with the
 // sentinel column L on rounds past a row's finite values, exactly like
-// lax.top_k and the Pallas kernel; neither ever selects a NaN. Rows up to
+// lax.top_k and the Pallas kernel. A row that holds a NaN gives NaN with
+// the sentinel column in every round, as the Pallas kernel does (lax.top_k
+// orders NaNs by sign instead); no engine score is NaN. Rows up to
 // 128 wide are taken: the engine's grid is max(bucket_rows, top_k) = 64
 // wide at RankConfig's defaults, and the chain merge's max_chain * K1 = 64
 // at the deployment configuration. The wrapper picks the route by K.
@@ -162,13 +164,16 @@ __global__ void __launch_bounds__(kMaxTileRows)
   int c[KMAX];
   repro::init_topk<KMAX>(v, c, L);
   const float4* rowp = reinterpret_cast<const float4*>(tile + t * stride);
+  bool any_nan = false;
   for (int q = 0; q < lp / 4; ++q) {
     const float4 x = rowp[q];
+    any_nan |= repro::either_nan(x.x, x.y) | repro::either_nan(x.z, x.w);
     repro::insert<KMAX>(v, c, x.x, 4 * q);
     repro::insert<KMAX>(v, c, x.y, 4 * q + 1);
     repro::insert<KMAX>(v, c, x.z, 4 * q + 2);
     repro::insert<KMAX>(v, c, x.w, 4 * q + 3);
   }
+  if (any_nan) repro::fill_nan<KMAX>(v, c, L);
 
   repro::write_topk<KMAX>(v, c, K, vec_out, vals + (r0 + t) * K,
                           args + (r0 + t) * K);

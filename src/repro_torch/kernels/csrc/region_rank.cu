@@ -259,9 +259,13 @@ __global__ void __launch_bounds__(kRowThreads)
   float v[KMAX];
   int cv[KMAX];
   repro::init_topk<KMAX>(v, cv, W);
+  bool any_nan = false;
   for (int k = 0; k < m; ++k) {
-    repro::insert<KMAX>(v, cv, w_s[t][k], __float_as_int(c_s[t][k]));
+    const float x = w_s[t][k];
+    any_nan |= x != x;
+    repro::insert<KMAX>(v, cv, x, __float_as_int(c_s[t][k]));
   }
+  if (any_nan) repro::fill_nan<KMAX>(v, cv, W);
   repro::write_topk<KMAX>(v, cv, K, vec_out, vals + (r0 + t) * K,
                           args + (r0 + t) * K);
   npass[r0 + t] = m;

@@ -8,7 +8,10 @@
 // column exactly like lax.top_k and the Pallas kernels' min-iota argmax.
 // The owning lane retires the winner with a compile-time-indexed write (no
 // local-memory spill). A round that finds only -inf is exhausted and emits
-// -inf with the sentinel column.
+// -inf with the sentinel column. A row that holds a NaN (one vote of the
+// warp) gives NaN with the sentinel column in every round, as the Pallas
+// kernels do: their row max is NaN, which no element equals, so no round
+// retires anything.
 #pragma once
 
 #include <cstdint>
@@ -21,6 +24,18 @@ __device__ __forceinline__ void warp_topk(float (&v)[NPER], int lane, int K,
                                           int sentinel,
                                           float* __restrict__ vals,
                                           int32_t* __restrict__ args) {
+  bool has_nan = false;
+#pragma unroll
+  for (int j = 0; j < NPER; ++j) has_nan |= v[j] != v[j];
+  if (__any_sync(0xffffffffu, has_nan)) {
+    if (lane == 0) {
+      for (int k = 0; k < K; ++k) {
+        vals[k] = __int_as_float(0x7fc00000);
+        args[k] = sentinel;
+      }
+    }
+    return;
+  }
   for (int k = 0; k < K; ++k) {
     float best = -INFINITY;
     int col = sentinel;

@@ -52,16 +52,23 @@ def score_gate_ref(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c,
 def bucket_topk_ref(grid: torch.Tensor, k: int):
     """Row-wise top-k by a stable descending sort: the lowest column wins
     ties, the same rule as ``lax.top_k`` and the kernel. Rounds past the
-    row's finite entries give ``-inf`` and the sentinel column ``L``.
+    row's finite entries give ``-inf`` and the sentinel column ``L``. A
+    row that holds a NaN, of either sign, gives NaN with the sentinel
+    column in every round, as the Pallas kernel does (its row max is NaN,
+    which no element equals, so no round retires anything); ``lax.top_k``
+    instead puts a positive NaN first with its column and a negative NaN
+    last.
 
     Returns (vals f32[R, k], args i32[R, k]).
     """
     R, L = grid.shape
+    nan_row = torch.isnan(grid).any(1, keepdim=True)
     vals, idx = torch.sort(grid, dim=1, descending=True, stable=True)
     vals, idx = vals[:, :k], idx[:, :k]
     if k > L:
         vals = torch.cat([vals, vals.new_full((R, k - L), -torch.inf)], 1)
         idx = torch.cat([idx, idx.new_full((R, k - L), L)], 1)
+    vals = torch.where(nan_row, torch.full_like(vals, torch.nan), vals)
     args = torch.where(vals > -torch.inf, idx, torch.full_like(idx, L))
     return vals, args.to(torch.int32)
 

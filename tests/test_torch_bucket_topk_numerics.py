@@ -5,8 +5,10 @@ step by step: the grid staged into a tile at the wrapper's padded stride
 (the columns from L to L rounded up to 4 filled with ``-inf``), each row
 scanned in ascending column order four columns at a time, a ``KMAX``-long
 descending (value, column) list started at (``-inf``, ``L``), a value
-taken only when it is strictly greater than the list's last entry, and the
-compare-and-shift that puts it behind the entries equal to it. It shows
+taken only when it is strictly greater than the list's last entry (never
+a NaN), the compare-and-shift that puts it behind the entries equal to it,
+and after the scan a row that held a NaN filled with NaN and the sentinel
+column (``fill_nan``, the Pallas kernel's rule). It shows
 that the first K entries equal the plain version ``ref.bucket_topk_ref``
 bit for bit, values and columns (sentinels included), and checks the
 route choice, the tile geometry and the staging's index stepping. The
@@ -39,7 +41,7 @@ def row_route(grid: np.ndarray, k: int):
     for q in range(lp // 4):
         for col in range(4 * q, 4 * q + 4):
             x = tile[:, col]
-            go = x > v[:, -1]
+            go = x > v[:, -1]                           # never a NaN
             here = x[:, None] > v
             up = np.zeros_like(here)
             up[:, 1:] = here[:, :-1]                    # x > v[i - 1]
@@ -49,6 +51,10 @@ def row_route(grid: np.ndarray, k: int):
             nc = np.where(up, prev_c, np.where(here, col, c))
             v = np.where(go[:, None], nv, v)
             c = np.where(go[:, None], nc, c)
+    # a row that held a NaN: fill_nan makes every entry NaN with the
+    # sentinel column
+    nan_row = np.isnan(tile[:, :lp]).any(1)
+    v[nan_row], c[nan_row] = np.nan, L
     return v[:, :k], c[:, :k]
 
 
@@ -85,6 +91,33 @@ def test_row_route_equals_plain_bit_for_bit(L, k):
     assert np.array_equal(c, ea.numpy())
     if k > L:
         assert (c[:, L:] == L).all() and np.isneginf(v[:, L:]).all()
+
+
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("L", [3, 64, 128])
+def test_row_route_nan_rows_as_plain(L, k):
+    """A row that holds a NaN (either sign; one, a few or all of its
+    columns, beside +inf) gives NaN with the sentinel column in every
+    round, as the plain version and the Pallas kernel do; the other rows
+    are untouched."""
+    g = make_grid(L, k)
+    rng = np.random.default_rng(7 * L + k)
+    nan = (rng.random(g.shape) < 0.1) & (rng.random((g.shape[0], 1)) < 0.4)
+    g[nan] = rng.choice(np.array([np.nan, -np.nan], np.float32),
+                        int(nan.sum()))
+    g[8] = np.nan
+    g[9] = np.where(np.arange(L) % 3, np.inf, np.nan).astype(np.float32)
+    v, c = row_route(g, k)
+    ev, ea = ref.bucket_topk_ref(torch.from_numpy(g), k)
+    same = np.isnan(v) == np.isnan(ev.numpy())
+    assert same.all()
+    fin = ~np.isnan(v)
+    assert np.array_equal(v[fin].view(np.int32),
+                          ev.numpy()[fin].view(np.int32))
+    assert np.array_equal(c, ea.numpy())
+    nan_row = np.isnan(g).any(1)
+    assert 8 < nan_row.sum() < g.shape[0] - 8
+    assert np.isnan(v[nan_row]).all() and (c[nan_row] == L).all()
 
 
 @pytest.mark.parametrize("k,route", [(0, "row"), (1, "row"), (8, "row"),

@@ -420,6 +420,134 @@ def test_assoc_score_cuda_tiles_and_routes(cuda, C, live, offset):
     assert torch.equal(out.view(torch.int32), got.view(torch.int32))
 
 
+MARGINALS = ("w_a", "w_b", "c_a", "c_b", "total_w", "total_c")
+
+
+def _odd_marginal(lanes, tot, lane, value, seed, rows=None):
+    """Copies of the numpy ``lanes`` and ``tot`` with ``value`` in one
+    marginal at about 30% of the slots with c_ab > 0 (of the rows holding
+    one, for a per-row lane of a ``rows``-row grid), or the whole total."""
+    lanes = [x.copy() for x in lanes]
+    tot = list(tot)
+    rng = np.random.default_rng(seed)
+    if lane.startswith("total"):
+        tot[lane == "total_c"] = np.float32(value)
+        return lanes, tot
+    x = lanes[("w_a", "w_b", "c_a", "c_b").index(lane) + 2]
+    live = lanes[1] > 0
+    if x.ndim < live.ndim:
+        live = live.any(1)
+    x[live & (rng.random(x.shape) < 0.3)] = value
+    return lanes, tot
+
+
+def _assert_nan_where_plain_nan(got, exp):
+    """NaN exactly where the plain version is NaN (any sign or payload),
+    every other value bit for bit."""
+    assert torch.equal(torch.isnan(got), torch.isnan(exp))
+    fin = ~torch.isnan(exp)
+    assert torch.equal(got[fin].view(torch.int32), exp[fin].view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("lane", MARGINALS)
+def test_score_kernels_cuda_nan_inf_marginals(cuda, lane, value, offset):
+    """score_gate and assoc_score with NaN or +-inf in one marginal of
+    slots with c_ab > 0, on the 16-byte route and (offset 1) the 4-byte
+    route: NaN exactly where the plain versions give NaN (the body's
+    clamps propagate it, as clamp_min does), bit for bit elsewhere."""
+    C = 3 * 4096 + 17
+    lanes_np, ok_np, lt_np = _score_lanes(C, C + 5, 0.8)
+    lanes_np, tot = _odd_marginal(lanes_np, (1e4, 2e4), lane, value, C)
+    lanes = [_on_card(x, cuda, offset) for x in lanes_np]
+    ok = _on_card(ok_np, cuda, offset)
+    lt = _on_card(lt_np, cuda, offset)
+    sc = [torch.tensor(x, dtype=torch.float32, device=cuda)
+          for x in (*tot, 25.0)]
+    got = score_gate(*lanes, ok, lt, *sc, coefs=COEFS, half_life=None,
+                     **GATES)
+    exp = ref.score_gate_ref(*lanes, ok, sc[0], sc[1], COEFS, **GATES)
+    _assert_nan_where_plain_nan(got, exp)
+    got = assoc_score(*lanes, sc[0], sc[1], coefs=COEFS)
+    _assert_nan_where_plain_nan(got, score_body(*lanes, sc[0], sc[1],
+                                                COEFS))
+    if lane in ("c_a", "c_b", "total_w", "total_c") and np.isnan(value):
+        assert bool(torch.isnan(exp).any())
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("lane", MARGINALS)
+@pytest.mark.parametrize("R,W,K", [(4096, 128, 8), (600, 64, 40)])
+def test_region_rank_cuda_nan_inf_marginals(cuda, R, W, K, lane, value):
+    """region_rank on both kernel routes (the wrapper's, the other forced)
+    with NaN or +-inf in one marginal where c_ab > 0: values NaN exactly
+    where region_rank_ref's are (a region whose list holds a NaN gives NaN
+    with the sentinel column in every round, as the Pallas kernel does),
+    every other value, column and npass equal."""
+    rng = np.random.default_rng(R + W + 1)
+    mk = lambda *s: rng.random(s).astype(np.float32)
+    w_ab, c_ab = np.floor(mk(R, W) * 20) / 4, np.floor(mk(R, W) * 20)
+    w_a, w_b = np.floor(mk(R) * 50), np.floor(mk(R, W) * 50)
+    c_a = np.floor(mk(R) * 100) + 20
+    c_b = np.maximum(c_ab, np.floor(mk(R, W) * 100))
+    ok = rng.random((R, W)) < 0.8
+    lanes_np, tot = _odd_marginal((w_ab, c_ab, w_a, w_b, c_a, c_b),
+                                  (1e4, 2e4), lane, value, R * K, rows=R)
+    lanes = [_t(x, cuda) for x in lanes_np]
+    ok_t = _t(ok, cuda)
+    sc = [torch.tensor(x, dtype=torch.float32, device=cuda)
+          for x in (*tot, 25.0)]
+    vals, args, npass = region_rank(*lanes, ok_t, None, *sc, k=K,
+                                    coefs=COEFS, half_life=None, **GATES)
+    outs = [(vals, args, npass)]
+    if ktk.kernel_route(K) == "row":       # the warp route, forced
+        bufs = (torch.empty_like(vals), torch.empty_like(args),
+                torch.empty_like(npass))
+        ktk.launch_region_rank(lanes, ok_t, None, torch.stack(sc), COEFS,
+                               tuple(GATES.values()), None, *bufs,
+                               kroute="warp")
+        outs.append(bufs)
+    ev, ea, en = ref.region_rank_ref(*lanes, ok_t, sc[0], sc[1], K, COEFS,
+                                     **GATES)
+    for v, a, n in outs:
+        _assert_nan_where_plain_nan(v, ev)
+        assert torch.equal(a, ea) and torch.equal(n, en)
+    if lane in ("c_a", "c_b", "total_w", "total_c") and np.isnan(value):
+        assert bool(torch.isnan(ev).any())
+
+
+@pytest.mark.parametrize("shape,k", [((4096, 64), 8), ((300, 64), 33),
+                                     ((257, 40), 6)])
+def test_bucket_topk_cuda_nan_rows(cuda, shape, k):
+    """NaN (either sign) in a third of the rows: on both routes such a row
+    gives NaN with the sentinel column in every round, as the plain
+    version and the Pallas kernel do; every other row bit for bit."""
+    rng = np.random.default_rng(shape[0] + k)
+    g = np.floor(rng.random(shape).astype(np.float32) * 20)
+    g[rng.random(shape) < 0.3] = -np.inf
+    g[rng.random(shape) < 0.05] = np.inf
+    nan = (rng.random(shape) < 0.1) & (rng.random((shape[0], 1)) < 0.33)
+    g[nan] = rng.choice(np.array([np.nan, -np.nan], np.float32),
+                        int(nan.sum()))
+    g[1] = np.nan
+    grid = torch.tensor(g, device=cuda)
+    ev, ea = ref.bucket_topk_ref(grid, k)
+    vals, args = bucket_topk(grid, k)
+    outs = [(vals, args)]
+    if ktk.kernel_route(k) == "row":
+        wv, wa = torch.empty_like(vals), torch.empty_like(args)
+        ktk.launch_bucket_topk(grid, wv, wa, "warp")
+        outs.append((wv, wa))
+    for v, a in outs:
+        _assert_nan_where_plain_nan(v, ev)
+        assert torch.equal(a, ea)
+    nan_row = torch.isnan(grid).any(1)
+    assert bool(torch.isnan(vals[nan_row]).all())
+    assert bool((args[nan_row] == shape[1]).all())
+    assert bool((~torch.isnan(vals[~nan_row])).all())
+
+
 ED_ROUTE = {1.0: "half", 1.5: "half", 1.3: "f32"}
 
 

@@ -129,6 +129,38 @@ def test_assoc_score_plain_matches_pallas(C, coefs, rtol, atol):
     np.testing.assert_allclose(got, exp, rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("lane", ["w_a", "w_b", "c_a", "c_b", "total_w",
+                                  "total_c"])
+def test_score_body_nan_inf_marginals_match_jax(lane, value):
+    """NaN and +-inf in one marginal of slots with c_ab > 0 (about 30% of
+    them, or the whole total): the twin ``score_body`` is NaN exactly where
+    the JAX ``score_body`` is, and agrees elsewhere at the score_gate test's
+    tolerance without the LLR weight (0 x a NaN lane is still NaN, so LLR's
+    NaNs show). The CUDA body is held to the twin on the card."""
+    from repro.kernels.assoc_score import score_body as j_score_body
+    from repro_torch.kernels.assoc_score import score_body
+    lanes, _, _ = _score_inputs(4096, 21)
+    lanes = [x.copy() for x in lanes]
+    tot = [np.float32(1e4), np.float32(2e4)]
+    if lane.startswith("total"):
+        tot[lane == "total_c"] = np.float32(value)
+    else:
+        x = lanes[("w_a", "w_b", "c_a", "c_b").index(lane) + 2]
+        rng = np.random.default_rng(4)
+        x[(lanes[1] > 0) & (rng.random(x.shape[0]) < 0.3)] = value
+    coefs = (1.0, 0.15, 0.0, 0.3)
+    got = score_body(*[_t(x) for x in lanes],
+                     *[torch.tensor(x) for x in tot], coefs).numpy()
+    exp = np.asarray(j_score_body(*[jnp.asarray(x) for x in lanes],
+                                  *[jnp.float32(x) for x in tot], coefs))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(exp))
+    fin = ~np.isnan(exp)
+    np.testing.assert_allclose(got[fin], exp[fin], rtol=1e-5, atol=1e-6)
+    if lane in ("c_a", "c_b", "total_w", "total_c") and np.isnan(value):
+        assert np.isnan(exp).any()
+
+
 def test_assoc_lanes_match_jnp_reference():
     """condprob, pmi and chi2 within rtol 1e-5 of the JAX lanes; LLR within
     the f32 rounding bound of its nine x*log(x) terms."""
@@ -165,6 +197,48 @@ def test_bucket_topk_plain_matches_pallas(shape, k):
     fin = ~np.isneginf(np.asarray(jv))
     np.testing.assert_array_equal(args.numpy()[fin], np.asarray(ja)[fin])
     assert (args.numpy()[~fin] == shape[1]).all()   # sentinel column L
+
+
+def _nan_grid(R, L, seed):
+    """``_grid`` with NaN of either sign in a third of the rows: one NaN,
+    a few, or a whole row."""
+    g = _grid(R, L, seed)
+    rng = np.random.default_rng(seed + 1)
+    rows = np.nonzero(rng.random(R) < 0.33)[0]
+    for i, r in enumerate(rows):
+        n = (1, 3, L)[i % 3]
+        cols = rng.choice(L, min(n, L), replace=False)
+        g[r, cols] = rng.choice(np.array([np.nan, -np.nan], np.float32),
+                                len(cols))
+    return g, np.isnan(g).any(1)
+
+
+@pytest.mark.parametrize("shape,k", [((256, 64), 8), ((300, 64), 33),
+                                     ((7, 130), 8), ((5, 3), 6)])
+def test_bucket_topk_nan_rows_match_pallas(shape, k):
+    """A row that holds a NaN: the plain version gives NaN with the
+    sentinel column in every round, as the Pallas kernel does (its row max
+    is NaN, which no element equals). ``lax.top_k`` (JAX's
+    ``ref.bucket_topk_ref``) orders NaNs by sign instead, so it is held to
+    the rows without NaN only; the parity contract records the split."""
+    from repro.kernels.ref import bucket_topk_ref as j_bucket_topk_ref
+    g, nan_row = _nan_grid(*shape, seed=shape[0] + k)
+    assert nan_row.any() and not nan_row.all()
+    vals, args = (x.numpy() for x in bucket_topk(torch.tensor(g), k))
+    jv, ja = (np.asarray(x) for x in j_bucket_topk(jnp.asarray(g), k,
+                                                   interpret=True))
+    np.testing.assert_array_equal(np.isnan(vals), np.isnan(jv))
+    assert np.isnan(vals[nan_row]).all() and (args[nan_row] == shape[1]).all()
+    fin = ~np.isnan(jv) & ~np.isneginf(jv)
+    np.testing.assert_array_equal(vals[~np.isnan(jv)], jv[~np.isnan(jv)])
+    np.testing.assert_array_equal(args[fin], ja[fin])
+    assert (args[~fin] == shape[1]).all()          # sentinel column L
+    keep = min(k, shape[1])
+    rv, ra = (np.asarray(x) for x in j_bucket_topk_ref(
+        jnp.asarray(g[~nan_row]), keep))
+    np.testing.assert_array_equal(vals[~nan_row][:, :keep], rv)
+    rfin = ~np.isneginf(rv)
+    np.testing.assert_array_equal(args[~nan_row][:, :keep][rfin], ra[rfin])
 
 
 def test_bucket_topk_ties_resolve_to_lowest_column():

@@ -267,6 +267,64 @@ def test_region_rank_plain_matches_jax(half_life, coefs, rtol, atol):
         and (args[np.isneginf(vals)] == W).all()
 
 
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("lane", ["w_a", "w_b", "c_a", "c_b", "total_w",
+                                  "total_c"])
+def test_region_rank_nan_inf_marginals_match_pallas(lane, value):
+    """NaN or +-inf in one marginal where c_ab > 0 (about 30% of those
+    slots or rows, or the whole total): the plain version's values are NaN
+    exactly where the Pallas kernel's are (a region whose gated grid holds
+    a NaN gives NaN with the sentinel column in every round), npass and
+    -inf equal, the rest as in the test above. ``lax.top_k`` in the jnp
+    branch orders NaNs by sign, so it is held to the NaN-free rows only."""
+    R, W, K = 48, 16, 8
+    coefs, rtol, atol = (1.0, 0.15, 0.0, 0.3), 1e-5, 1e-6
+    lanes, ok, lt = _region_inputs(R, W, 5)
+    lanes = [x.copy() for x in lanes]
+    tot = [np.float32(1e4), np.float32(2e4)]
+    rng = np.random.default_rng(9)
+    if lane.startswith("total"):
+        tot[lane == "total_c"] = np.float32(value)
+    elif lane in ("w_a", "c_a"):                   # one per region row
+        x = lanes[2 if lane == "w_a" else 4]
+        x[(lanes[1] > 0).any(1) & (rng.random(R) < 0.3)] = value
+    else:
+        x = lanes[3 if lane == "w_b" else 5]
+        x[(lanes[1] > 0) & (rng.random((R, W)) < 0.3)] = value
+    vals, args, npass = (x.numpy() for x in region_rank(
+        *(_t(x) for x in (*lanes, ok, lt)), torch.tensor(tot[0]),
+        torch.tensor(tot[1]), torch.tensor(25.0), k=K, coefs=coefs,
+        half_life=None, **GATES))
+    bc = lambda v: jnp.broadcast_to(jnp.asarray(v)[:, None], (R, W))
+    jl = [jnp.asarray(lanes[0]), jnp.asarray(lanes[1]), bc(lanes[2]),
+          jnp.asarray(lanes[3]), bc(lanes[4]), jnp.asarray(lanes[5])]
+    kv, ka, kn = (np.asarray(x) for x in j_region_rank(
+        *jl, jnp.asarray(ok), jnp.asarray(lt), jnp.float32(tot[0]),
+        jnp.float32(tot[1]), jnp.float32(25.0), k=K, coefs=coefs,
+        interpret=True, **GATES))
+    np.testing.assert_array_equal(npass, kn)
+    nan_row = np.isnan(kv).any(1)
+    np.testing.assert_array_equal(np.isnan(vals), np.isnan(kv))
+    assert np.isnan(vals[nan_row]).all() and (args[nan_row] == W).all()
+    np.testing.assert_array_equal(np.isneginf(vals), np.isneginf(kv))
+    fin = np.isfinite(kv)
+    np.testing.assert_allclose(vals[fin], kv[fin], rtol=rtol, atol=atol)
+    cfg = JRankConfig(coef_condprob=coefs[0], coef_pmi=coefs[1],
+                      coef_llr=coefs[2], coef_chi2=coefs[3], **GATES)
+    score = combine_scores(cfg, *assoc_scores_jnp(
+        *jl, jnp.float32(tot[0]), jnp.float32(tot[1])))
+    gate = jnp.asarray(ok) & (jl[0] >= GATES["min_pair_weight"]) \
+        & (jl[1] >= GATES["min_pair_count"]) \
+        & (jl[2] >= GATES["min_src_weight"])
+    grid = np.asarray(jnp.where(gate, score, -jnp.inf))
+    sep = _not_tied(grid, kv, 2 * rtol)
+    np.testing.assert_array_equal(args[sep], ka[sep])
+    jv, ja = (np.asarray(x) for x in jax.lax.top_k(grid[~nan_row], K))
+    np.testing.assert_allclose(vals[~nan_row], jv, rtol=rtol, atol=atol)
+    if lane in ("c_a", "c_b", "total_w", "total_c") and np.isnan(value):
+        assert nan_row.any()
+
+
 # ---------------------------------------------------------------------------
 # Store: inserts, drops and sweeps leaf by leaf
 # ---------------------------------------------------------------------------

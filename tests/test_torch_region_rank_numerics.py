@@ -36,7 +36,7 @@ GATES = dict(min_pair_weight=0.25, min_src_weight=0.5, min_pair_count=1.0)
 
 
 def insert(v, c, x, col):
-    """row_topk.cuh's insert on one list (v, c), in place."""
+    """row_topk.cuh's insert on one list (v, c), in place (never a NaN)."""
     if not x > v[-1]:
         return
     for i in range(len(v) - 1, 0, -1):
@@ -103,8 +103,12 @@ def row_route(w, c_ab, w_a, ok, score, k, gates=GATES):
         for t in range(n):
             v = [f32(-np.inf)] * kmax
             c = [W] * kmax
+            any_nan = False
             for x, col, _ in lists[t]:
+                any_nan |= x != x
                 insert(v, c, x, col)
+            if any_nan:                                 # fill_nan
+                v, c = [f32(np.nan)] * kmax, [W] * kmax
             vals[r0 + t] = np.asarray(v[:k], f32)
             args[r0 + t] = c[:k]
             npass[r0 + t] = cnt[t]
@@ -160,6 +164,47 @@ def test_row_route_equals_plain_bit_for_bit(R, W, K, sparse, half_life):
         assert (n == 0).mean() >= 0.6
     if K > W:
         assert (a[:, W:] == W).all() and np.isneginf(v[:, W:]).all()
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("lane", ["w_a", "w_b", "c_a", "c_b", "total_w",
+                                  "total_c"])
+@pytest.mark.parametrize("R,W,K", [(70, 128, 8), (45, 40, 16)])
+def test_row_route_nan_inf_marginals_equal_plain(R, W, K, lane, value):
+    """NaN and +-inf in one marginal where c_ab > 0 (about 30% of those
+    slots or rows, or the whole total): scores NaN where the plain body's
+    clamps give NaN, and a row whose list holds a NaN gives NaN with the
+    sentinel column in every round (the Pallas kernel's rule); values NaN
+    exactly where the plain version's are, bits and columns equal."""
+    w_ab, c_ab, w_a, w_b, c_a, c_b, ok, _ = make_grid(R, W, R + W + K,
+                                                      False)
+    rng = np.random.default_rng(R * K)
+    tot = [np.float32(1e4), np.float32(2e4)]
+    if lane.startswith("total"):
+        tot[lane == "total_c"] = np.float32(value)
+    elif lane in ("w_a", "c_a"):                 # one per region row
+        x = w_a if lane == "w_a" else c_a
+        x[((c_ab > 0).any(1)) & (rng.random(R) < 0.3)] = value
+    else:
+        x = w_b if lane == "w_b" else c_b
+        x[(c_ab > 0) & (rng.random((R, W)) < 0.3)] = value
+    t = torch.from_numpy
+    sc = [torch.tensor(x, dtype=torch.float32) for x in tot]
+    ev, ea, en = ref.region_rank_ref(t(w_ab), t(c_ab), t(w_a), t(w_b),
+                                     t(c_a), t(c_b), t(ok), sc[0], sc[1], K,
+                                     COEFS, **GATES)
+    score = score_body(t(w_ab), t(c_ab), t(w_a)[:, None].expand(R, W),
+                       t(w_b), t(c_a)[:, None].expand(R, W), t(c_b), sc[0],
+                       sc[1], COEFS).numpy()
+    v, a, n = row_route(w_ab, c_ab, w_a, ok, score, K)
+    ev = ev.numpy()
+    assert np.array_equal(np.isnan(v), np.isnan(ev))
+    fin = ~np.isnan(ev)
+    assert np.array_equal(v[fin].view(np.int32), ev[fin].view(np.int32))
+    assert np.array_equal(a, ea.numpy())
+    assert np.array_equal(n, en.numpy())
+    if lane in ("c_a", "c_b", "total_w", "total_c") and np.isnan(value):
+        assert np.isnan(v).any()
 
 
 @pytest.mark.parametrize("K", [1, 8, 16, 32])

@@ -235,6 +235,85 @@ def test_assoc_score_tiles_equal_plain_bit_for_bit(size, share, vec):
     assert np.array_equal(out.view(np.int32), exp.view(np.int32))
 
 
+MARGINALS = ("w_a", "w_b", "c_a", "c_b", "total_w", "total_c")
+
+
+def odd_marginal(lanes, tot, lane, value, seed):
+    """Copies of ``lanes`` and ``tot`` with ``value`` in one marginal: at
+    about 30% of the slots with c_ab > 0, or the whole total."""
+    lanes = [x.copy() for x in lanes]
+    tot = list(tot)
+    if lane.startswith("total"):
+        tot[lane == "total_c"] = F32(value)
+    else:
+        x = lanes[("w_a", "w_b", "c_a", "c_b").index(lane) + 2]
+        rng = np.random.default_rng(seed)
+        hit = (lanes[1] > 0) & (rng.random(x.shape[0]) < 0.3)
+        x[hit] = F32(value)
+    return lanes, tot
+
+
+def assert_nan_where_plain_nan(out, exp):
+    """NaN exactly where the plain version is NaN (any sign and payload);
+    every other value bit for bit."""
+    assert np.array_equal(np.isnan(out), np.isnan(exp))
+    fin = ~np.isnan(exp)
+    assert np.array_equal(out[fin].view(np.int32), exp[fin].view(np.int32))
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("lane", MARGINALS)
+def test_score_gate_tiles_nan_inf_marginals(lane, value, vec):
+    """NaN and +-inf marginals in slots with c_ab > 0 (the body's clamps
+    propagate NaN, as the plain clamp_min does): the tiles give NaN exactly
+    where score_gate_ref does, and its bits everywhere else."""
+    C = 3 * S + 17
+    lanes_np, ok_np, _ = score_lanes(C, 0.71, C + 3)
+    lanes_np, tot = odd_marginal(lanes_np, SC[:2], lane, value, C)
+    t = torch.from_numpy
+    lanes = [t(x) for x in lanes_np]
+    sc = [torch.tensor(x, dtype=torch.float32) for x in tot]
+    exp = ref.score_gate_ref(*lanes, t(ok_np), sc[0], sc[1], COEFS,
+                             **GATES).numpy()
+    passes = (ok_np & (lanes_np[0] >= F32(GATES["min_pair_weight"]))
+              & (lanes_np[1] >= F32(GATES["min_pair_count"]))
+              & (lanes_np[2] >= F32(GATES["min_src_weight"])))
+
+    def score_of(slots):
+        idx = t(slots)
+        return score_body(*(x[idx] for x in lanes), sc[0], sc[1],
+                          COEFS).numpy()
+
+    out, writes = replay(C, vec, passes, score_of, F32(-np.inf))
+    assert (writes == 1).all()
+    assert_nan_where_plain_nan(out, exp)
+    if lane in ("c_a", "c_b", "total_w", "total_c") and np.isnan(value):
+        assert np.isnan(out).any()
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("lane", MARGINALS)
+def test_assoc_score_tiles_nan_inf_marginals(lane, value, vec):
+    C = 3 * S + 17
+    lanes_np = assoc_lanes(C, 0.71, C + 9)
+    lanes_np, tot = odd_marginal(lanes_np, SC[:2], lane, value, C + 1)
+    t = torch.from_numpy
+    lanes = [t(x) for x in lanes_np]
+    tot = [torch.tensor(x, dtype=torch.float32) for x in tot]
+    exp = score_body(*lanes, *tot, COEFS).numpy()
+    fill = score_body(*([torch.zeros(1)] * 6), *tot, COEFS).numpy()[0]
+
+    def score_of(slots):
+        idx = t(slots)
+        return score_body(*(x[idx] for x in lanes), *tot, COEFS).numpy()
+
+    out, writes = replay(C, vec, lanes_np[1] > 0, score_of, fill)
+    assert (writes == 1).all()
+    assert_nan_where_plain_nan(out, exp)
+
+
 @pytest.mark.parametrize("junk", [np.inf, -np.inf, np.nan, "mixed"])
 @pytest.mark.parametrize("c_ab", [0.0, -0.0, -1.0, np.nan])
 @pytest.mark.parametrize("coefs", [COEFS, (-1.0, 0.15, 0.02, 0.3),
