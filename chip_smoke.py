@@ -120,7 +120,26 @@ Phases, each of which must pass:
      before each recovery and read after; each of the layout's kernels
      must launch). Then ``repro_torch.breaking_news`` on the card: the
      related terms must surface within 10 sim-minutes and survive the
-     crash.
+     crash;
+  8. the serving stack at deployment scale — ``repro_torch.launch.
+     serve_assist``'s loop on the phase-4 hash configuration and stream
+     with the ``steve_jobs_scenario`` event (two rt replicas, the
+     background engine, the durable log, delta-chained state snapshots
+     of both engines, two frontends behind a ``ServerSet``), crashed
+     right after tick 55 (the end of a log segment); ``recover_service``
+     on its directories must restore both engines bit for bit against
+     host copies of their states at the crash; then the loop resumes with
+     ``recover`` through tick 72 (the spelling job at tick 60, requests
+     at 60 and 72). Printed with the card's name and power limit: ms per
+     stack tick, each engine's full and delta save ms, whole-stack time
+     to fresh against the 80-s rank period, the spelling job's ms and
+     corrections, ``ServerSet.request`` p50/p99 over 1,000 live query
+     texts, the frontends' ``rt_lag_ticks``/``bg_lag_ticks``,
+     ``related('steve jobs')`` at tick 72 and the event terms it holds,
+     peak device memory and the phase's launches (counts set to 0 before,
+     read after). ``decay_prune_multi``, ``score_gate``, ``bucket_topk``
+     and ``edit_distance`` must launch, and the tick-72 answer must be
+     non-empty and come from the tick-72 table.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -2272,6 +2291,287 @@ def run_recovery(dev, card: str):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the serving stack at deployment scale.
+# ---------------------------------------------------------------------------
+
+# The loop appends each tick to the durable log before stepping and seals
+# a segment every 8 ticks; the crash comes right after a seal (ticks
+# 48-55), so the log holds every tick and both engines replay 49-55 onto
+# their tick-48 snapshots. (At tick 52 the writer's unsealed ticks 48-52
+# would die with the stack: recovery would land on the snapshot itself,
+# with nothing replayed, not on the crash-time state.)
+SERVE_CRASH_AT = 55
+SERVE_TICKS = 73              # resumed through tick 72
+SERVE_REQUESTS = 1000
+SERVE_KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk",
+                 "edit_distance")
+
+
+def _ms_stats(xs):
+    xs = sorted(xs)
+    return {"n": len(xs), "mean": statistics.mean(xs),
+            "p50": xs[len(xs) // 2], "p99": xs[min(len(xs) - 1,
+                                                  int(0.99 * len(xs)))],
+            "max": xs[-1]}
+
+
+def run_serving(dev, card: str):
+    """Phase 8: ``repro_torch.launch.serve_assist``'s loop on the hash
+    deployment cell (two rt replicas, the bg engine, two frontends behind a
+    ServerSet), crashed at ``SERVE_CRASH_AT``, the stack recovered by
+    ``recover_service`` and held bit for bit against host copies of both
+    engines at the crash, then resumed with ``recover`` through tick 72.
+    Returns the phase's launch counts."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.background import background_config
+    from repro_torch.core.hashing import join_fp
+    from repro_torch.core.stores import export_live
+    from repro_torch.data.stream import steve_jobs_scenario
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    from repro_torch.launch import serve_assist
+    from repro_torch.streaming import ReplayConfig, recover_service
+    t_phase = time.perf_counter()
+    cfg, base = deployment_config("hash")
+    bgcfg = background_config(cfg, rank_every_mult=3)
+    _, event = steve_jobs_scenario(base_cfg=base)
+    rank_period_ms = cfg.rank_every * base.tick_seconds * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    lines = []
+    # the spelling job's inputs and result, for its check after the phase
+    job, spelling_cycle = [], serve_assist.spelling_cycle
+
+    def keep_job(fps, texts, weights, scfg, **kw):
+        corr = spelling_cycle(fps, texts, weights, scfg, **kw)
+        job.append((fps, texts, weights, corr))
+        return corr
+
+    serve_assist.spelling_cycle = keep_job
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+        opts = serve_assist.AssistOptions(
+            ticks=SERVE_TICKS, out=tmp, replicas=2, fail_replica_at=-1,
+            crash_at=SERVE_CRASH_AT, recover=False, full_every=4,
+            slow_io_ms=0.0)
+        walls = {}
+        t0 = time.perf_counter()
+        live = serve_assist.run(cfg, base, opts, dev, log=lines.append)
+        walls["live_run"] = time.perf_counter() - t0
+        if live["crashed_at"] != SERVE_CRASH_AT:
+            raise AssertionError(f"serving: no crash at {SERVE_CRASH_AT}")
+        copies = {"rt": live["backends"][0].state_arrays(),
+                  "bg": live["bg"].state_arrays()}
+        if not arrays_bits_equal(live["backends"][1].state_arrays(),
+                                 copies["rt"]):
+            raise AssertionError("serving: the two rt replicas differ")
+        ticks, saves = list(live["ticks"]), list(live["saves"])
+        del live
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc, rstats = recover_service(
+            cfg, CheckpointManager(os.path.join(tmp, "state", "rt")),
+            CheckpointManager(os.path.join(tmp, "state", "bg")),
+            os.path.join(tmp, "log"), ReplayConfig(chunk_ticks=8),
+            bg_cfg=bgcfg, device=dev)
+        torch.cuda.synchronize()
+        fresh_ms = (time.perf_counter() - t0) * 1e3
+        walls["recover_service"] = fresh_ms / 1e3
+        for name, eng in (("rt", svc.rt), ("bg", svc.bg)):
+            st = rstats[name]
+            if int(eng.state.tick) != SERVE_CRASH_AT + 1 or not \
+                    arrays_bits_equal(eng.state_arrays(), copies[name]):
+                raise AssertionError(f"serving: recovered {name} engine "
+                                     f"differs from the crash-time state "
+                                     f"({st['n_ticks']} ticks replayed)")
+        recovery = {name: {
+            "restored_step": rstats[name]["restored_step"],
+            "chain_len": rstats[name]["restore"]["chain_len"],
+            "ticks_replayed": rstats[name]["n_ticks"],
+            "restore_ms": rstats[name]["restore_s"] * 1e3,
+            "replay_ms": (rstats[name]["wall_s"] - rstats[name]["rank_s"])
+            * 1e3,
+            "rank_ms": rstats[name]["rank_s"] * 1e3}
+            for name in ("rt", "bg")}
+        if not svc.suggestions:
+            raise AssertionError("serving: recovered stack has no tables")
+        del svc, copies
+        torch.cuda.empty_cache()
+        opts = dataclasses.replace(opts, crash_at=-1, recover=True)
+        t0 = time.perf_counter()
+        res = serve_assist.run(cfg, base, opts, dev, log=lines.append)
+        walls["resumed_run"] = time.perf_counter() - t0
+        serve_assist.spelling_cycle = spelling_cycle
+        draws = {"live_run_ms": sum(r["draw_ms"] for r in ticks),
+                 "resumed_run_ms": sum(r["draw_ms"] for r in res["ticks"]),
+                 "resumed_run_skipped_ms": res["skip_draw_ms"],
+                 "resumed_run_skipped_ticks": res["start_tick"]}
+        ticks += res["ticks"]
+        saves += res["saves"]
+        # requests for live query texts, after the last poll
+        exp = export_live(res["backends"][0].state.qstore)
+        fps = join_fp(exp["key_hi"], exp["key_lo"])
+        pick = np.random.default_rng(SEED).choice(
+            len(fps), size=min(SERVE_REQUESTS, len(fps)), replace=False)
+        texts = [res["tok"].text(int(fps[i])) for i in pick]
+        req_ms, answered = [], 0
+        for q in texts:
+            t0 = time.perf_counter()
+            answered += bool(res["serverset"].request(q, k=8))
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics = res["frontends"][0].metrics()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(tk.LAUNCHES)
+    last = res["requests"][-1]
+    route = last["route"]
+    terms = [t for t in event.terms[1:] if t in dict(route.suggestions)]
+    if last["t"] != SERVE_TICKS - 1 or route.tick != SERVE_TICKS - 1 or \
+            route.staleness != 0 or not route.suggestions:
+        raise AssertionError(f"serving: tick-{SERVE_TICKS - 1} request "
+                             f"answered from {last['t']}/{route}")
+    missing = [n for n in SERVE_KERNELS if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"serving: kernels not launched: {missing}")
+    spelling = res["spelling"]
+    if not spelling or spelling[0]["corrections"] <= 0 or len(job) != 1:
+        raise AssertionError(f"serving: spelling job {spelling}, "
+                             f"{len(job)} kept")
+    draws["share_of_phase"] = sum(
+        v for k, v in draws.items() if k.endswith("_ms")) / 1e3 / (
+        time.perf_counter() - t_phase)
+    by_kind = {}
+    for s in saves:
+        for e in ("rt", "bg"):
+            by_kind.setdefault(f"{e} {s[e]['kind']}", []).append(s[e]["ms"])
+    report = {
+        "card": card, "crash_at": SERVE_CRASH_AT,
+        "resumed_from": res["start_tick"], "last_tick": SERVE_TICKS - 1,
+        "stack_tick_ms": _ms_stats([r["stack_ms"] for r in ticks]),
+        "steps_ms": _ms_stats([r["steps_ms"] for r in ticks]),
+        "poll_ms": _ms_stats([r["poll_ms"] for r in ticks]),
+        "slowest_ticks": [
+            {k: r[k] for k in ("t", "steps_ms", "poll_ms", "persist_ms")}
+            for r in sorted(ticks, key=lambda r: -r["stack_ms"])[:6]],
+        "persist_ms_total": sum(r["persist_ms"] for r in ticks),
+        "stream_draws": draws, "wall_s": walls,
+        "save_ms": {k: _ms_stats(v) for k, v in by_kind.items()},
+        "time_to_fresh_ms": fresh_ms,
+        "resume_time_to_fresh_ms": res["recover"]["wall_s"] * 1e3,
+        "rank_period_ms": rank_period_ms, "recovery": recovery,
+        "spelling": spelling, "request_ms": _ms_stats(req_ms),
+        "requests_answered": answered,
+        "rt_lag_ticks": metrics["rt_lag_ticks"],
+        "bg_lag_ticks": metrics["bg_lag_ticks"],
+        "related_t72": route.suggestions, "event_terms_held": terms,
+        "peak_mem_gib": peak,
+        "launches": {n: k for n, k in launches.items() if k}}
+    log(f"[8] serving stack ({card}): " + json.dumps(report))
+    for line in lines:
+        if "CRASH" in line or "recover" in line or "spelling" in line \
+                or "related" in line:
+            log("  " + line.strip())
+    st = report["stack_tick_ms"]
+    log(f"  serving ({card}): ms per stack tick (3 engine steps, log "
+        f"append, 2 frontend polls) mean {st['mean']:.3f}, p50 "
+        f"{st['p50']:.3f}, max {st['max']:.3f} over {st['n']} ticks; "
+        f"steps p50 {report['steps_ms']['p50']:.3f}, polls p50 "
+        f"{report['poll_ms']['p50']:.3f}, max {report['poll_ms']['max']:.3f}"
+        f"; slowest {report['slowest_ticks']}; walls (s) {walls}")
+    log(f"  serving ({card}): synthetic stream draws on the host: live "
+        f"run {draws['live_run_ms']:.3f} ms over {SERVE_CRASH_AT + 1} "
+        f"ticks, resumed run {draws['resumed_run_ms']:.3f} ms over "
+        f"{SERVE_TICKS - res['start_tick']} ticks plus "
+        f"{draws['resumed_run_skipped_ms']:.3f} ms drawing and dropping its "
+        f"{res['start_tick']} earlier ticks; "
+        f"{100 * draws['share_of_phase']:.1f}% of the phase so far")
+    for k, v in report["save_ms"].items():
+        log(f"  serving ({card}): {k} save ms mean {v['mean']:.3f} "
+            f"(n {v['n']}, max {v['max']:.3f})")
+    log(f"  serving ({card}): whole-stack time to fresh "
+        f"(recover_service) {fresh_ms:.3f} ms against the "
+        f"{rank_period_ms:.0f}-ms rank period; resume "
+        f"{report['resume_time_to_fresh_ms']:.3f} ms; " + "; ".join(
+            f"{e} from step {r['restored_step']} (chain of "
+            f"{r['chain_len']}), {r['ticks_replayed']} ticks replayed, "
+            f"restore {r['restore_ms']:.3f} + replay {r['replay_ms']:.3f}"
+            f" + rank {r['rank_ms']:.3f} ms" for e, r in recovery.items())
+        + "; both engines bit-exact against the crash-time state")
+    log(f"  serving ({card}): spelling job {spelling[0]['ms']:.3f} ms, "
+        f"{spelling[0]['corrections']} corrections over "
+        f"{spelling[0]['sources']} sources")
+    rq = report["request_ms"]
+    log(f"  serving ({card}): ServerSet.request over {rq['n']} live query "
+        f"texts: p50 {rq['p50']:.4f} ms, p99 {rq['p99']:.4f} ms "
+        f"({answered} answered with rows); frontend metrics rt_lag_ticks "
+        f"{metrics['rt_lag_ticks']}, bg_lag_ticks {metrics['bg_lag_ticks']}")
+    log(f"  serving ({card}): related('{event.terms[0]}') at tick "
+        f"{route.tick} (staleness {route.staleness}): {route.suggestions}; "
+        f"event terms held {terms}; peak {peak:.3f} GiB")
+    log(f"  serving launches: {report['launches']}")
+    del res
+    torch.cuda.empty_cache()
+    check_serving_spelling(dev, job[0], launches["edit_distance"])
+    log(f"  serving phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def check_serving_spelling(dev, job, n_launches: int) -> None:
+    """Phase 8's spelling job held against the plain version on its own
+    inputs: the job's sources, texts and weights go through spelling_cycle
+    again, each edit_distance launch compared bit for bit with the plain
+    version on the same pairs (the path's launches, one for one), and the
+    corrections must equal the job's; then recheck_spelling re-solves a
+    sample of its sources with the plain version. These launches come
+    after the phase's counts were read."""
+    import torch
+    from repro_torch.core.spelling import SpellConfig, spelling_cycle
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    fps, texts, weights, corr = job
+    edit_distance = kops.edit_distance
+    held = {"launches": 0, "pairs": 0, "largest_batch": 0,
+            "max_abs_err": 0.0}
+
+    def hold(ac, al, bc, bl, *, first_char_cost):
+        got = edit_distance(ac, al, bc, bl, first_char_cost=first_char_cost)
+        exp = ref.edit_distance_ref(ac, al, bc, bl,
+                                    first_char_cost=first_char_cost)
+        if not torch.equal(got.view(torch.int32), exp.view(torch.int32)):
+            raise AssertionError(f"serving: edit_distance launch "
+                                 f"{held['launches']} ({ac.shape[0]} pairs) "
+                                 f"differs from the plain version")
+        n = ac.shape[0]
+        held["launches"] += 1
+        held["pairs"] += n
+        held["largest_batch"] = max(held["largest_batch"], n)
+        if n:
+            held["max_abs_err"] = max(held["max_abs_err"],
+                                      float((got - exp).abs().max()))
+        return got
+
+    t0 = time.perf_counter()
+    kops.edit_distance = hold
+    try:
+        again = spelling_cycle(fps, texts, weights, SpellConfig(),
+                               device=dev)
+    finally:
+        kops.edit_distance = edit_distance
+    if held["launches"] != n_launches or again != corr:
+        raise AssertionError(f"serving: the spelling job's check run made "
+                             f"{held['launches']} edit_distance launches "
+                             f"(the path {n_launches}); corrections equal: "
+                             f"{again == corr}")
+    log(f"  serving spelling job held against the plain version: "
+        f"{json.dumps(held)}, every launch bit-equal, corrections equal, "
+        f"{time.perf_counter() - t0:.1f} s")
+    recheck_spelling(dev, job)
+
+
 def profile_region() -> None:
     """The region cell's 17 ticks, then one more ingest tick and one rank
     cycle under the profiler, on the ``repro_torch`` package on the path."""
@@ -2510,6 +2810,10 @@ def main() -> int:
 
     # ---- 7. crash recovery at deployment scale ----
     launches["recovery"] = run_recovery(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 8. the serving stack at deployment scale ----
+    launches["serving"] = run_serving(dev, card)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

@@ -398,6 +398,12 @@ def _flat_leaves(state: EngineState) -> List[Tuple[torch.Tensor, bool]]:
     return out
 
 
+def clone_state(state: EngineState) -> EngineState:
+    """A copy of ``state`` that shares no storage with it. The stores write
+    their tensors in place, so two engines must never step one state."""
+    return _unflatten(state, [t.clone() for t, _ in _flat_leaves(state)])
+
+
 def _snapshot_leaves(state: EngineState) -> List[torch.Tensor]:
     """The state's leaves in ``_flat_leaves`` order, u32 lanes viewed as
     ``torch.uint32`` so a checkpoint stores them as ``uint32``."""
@@ -562,9 +568,14 @@ class SearchAssistanceEngine:
     # ---- state carry-over (the JAX engine's leaf dict) ----
     def state_arrays(self) -> Dict[str, np.ndarray]:
         """``leaf_{i}`` numpy arrays in the JAX engine's order and dtypes
-        (u32 lanes as uint32)."""
-        return {f"leaf_{i}": (to_np_u32(t) if is_u32 else t.cpu().numpy())
-                for i, (t, is_u32) in enumerate(_flat_leaves(self.state))}
+        (u32 lanes as uint32): host copies that nothing else references, as
+        the JAX engine's are, so later in-place store writes leave them be
+        (``.numpy()`` of a CPU tensor would alias it)."""
+        out = {}
+        for i, (t, is_u32) in enumerate(_flat_leaves(self.state)):
+            a = t.detach().to("cpu", copy=True).numpy()
+            out[f"leaf_{i}"] = a.view(np.uint32) if is_u32 else a
+        return out
 
     def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
         """Load a ``state_arrays()`` dict (from this engine or the JAX one)."""

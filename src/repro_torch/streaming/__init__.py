@@ -4,11 +4,12 @@ The PyTorch port of the JAX package's ``streaming`` package, for what is
 ported: :mod:`.codec` (the ``FHC1`` blob container), :mod:`.log` (the
 segmented firehose log, its epochs and fencing, and the failure
 injectors) and :mod:`.replay` (snapshot restore + catch-up replay +
-handoff). The paper's backend is deliberately volatile: durability comes
-from persisting results every rank cycle and from rewinding into the
-firehose and replaying it faster than real time. Log compaction,
-``recover_service``, overload control and the workload generator are not
-ported yet.
+handoff, for one engine and for the whole rt + bg serving stack,
+``recover_service``). The paper's backend is deliberately volatile:
+durability comes from persisting results every rank cycle and from
+rewinding into the firehose and replaying it faster than real time. Log
+compaction, overload control and the workload generator are not ported
+yet.
 """
 from .codec import (CodecError, decode_payload, encode_payload,
                     xor_delta_decode, xor_delta_encode)
@@ -16,7 +17,7 @@ from .log import (FirehoseLogReader, FirehoseLogWriter, LogChunk,
                   WriterFencedError, corrupt_segment, flaky_io,
                   kill_writer_mid_segment, log_bases, log_epoch, slow_io)
 from .replay import (CatchUpController, ReplayConfig, chunk_to_stack,
-                     recover_engine)
+                     recover_engine, recover_service)
 
 __all__ = [
     "FirehoseLogReader", "FirehoseLogWriter", "LogChunk",
@@ -25,4 +26,5 @@ __all__ = [
     "CodecError", "decode_payload", "encode_payload",
     "xor_delta_decode", "xor_delta_encode",
     "CatchUpController", "ReplayConfig", "chunk_to_stack", "recover_engine",
+    "recover_service",
 ]

@@ -92,6 +92,7 @@ import numpy as np
 from ..data.stream import QueryEvents, TweetBatch
 from .codec import DEFAULT_CODEC, decode_payload, encode_payload
 
+LOG_NAME = "firehose"     # the durable log's file-name stem
 _FMT = "{name}-{first:012d}-{last:012d}.npz"
 _SEG_RE = re.compile(r"^(?P<name>.+)-(?P<first>\d{12})-(?P<last>\d{12})\.npz$")
 
@@ -174,7 +175,7 @@ class FirehoseLogWriter:
     see ``distributed.fault_tolerance.ReplicaGroup.log_append``)."""
 
     def __init__(self, directory: str, ticks_per_segment: int = 8,
-                 keep_segments: int = 0, name: str = "firehose",
+                 keep_segments: int = 0, name: str = LOG_NAME,
                  epoch: int = 0):
         if ticks_per_segment <= 0:
             raise ValueError(f"ticks_per_segment must be > 0, not "
@@ -496,12 +497,12 @@ def _load_manifest(directory: str, name: str) -> List[Segment]:
             for s in _load_manifest_doc(directory, name).get("segments", [])]
 
 
-def log_epoch(directory: str, name: str = "firehose") -> int:
+def log_epoch(directory: str, name: str = LOG_NAME) -> int:
     """The current leadership epoch recorded in the log manifest."""
     return int(_load_manifest_doc(directory, name).get("epoch", 0))
 
 
-def log_bases(directory: str, name: str = "firehose") -> List[Dict]:
+def log_bases(directory: str, name: str = LOG_NAME) -> List[Dict]:
     """The compaction bases advertised in the log manifest (tick order)."""
     return list(_load_manifest_doc(directory, name).get("bases", []))
 
@@ -524,7 +525,7 @@ class FirehoseLogReader:
     or as the raised ``OSError`` during a chunk read.
     """
 
-    def __init__(self, directory: str, name: str = "firehose",
+    def __init__(self, directory: str, name: str = LOG_NAME,
                  verify: bool = True, io_retries: int = 2,
                  io_backoff_s: float = 0.005):
         self.dir = directory
@@ -600,6 +601,10 @@ class FirehoseLogReader:
 
     def last_tick(self) -> Optional[int]:
         return self.segments[-1].last if self.segments else None
+
+    def floor_tick(self) -> Optional[int]:
+        """Newest advertised compaction base tick (replay floor), or None."""
+        return newest_base_tick(self.bases)
 
     # -- reads --
     def _load_segment(self, seg: Segment) -> LogChunk:

@@ -3,9 +3,8 @@
 The PyTorch port of the JAX package's ``streaming/replay.py``. The engine's
 ``ingest_many`` is a loop over ticks here (one ``lax.scan`` dispatch per
 chunk in JAX); each tick runs exactly what a live ``step()`` does, so the
-replayed state is bit for bit the uncrashed engine's. Not ported yet:
-``recover_service`` (it needs ``core/background.py``) and the log
-compaction tier: a log whose manifest advertises a compaction base is
+replayed state is bit for bit the uncrashed engine's. Not ported yet: the
+log compaction tier. A log whose manifest advertises a compaction base is
 refused (``NotImplementedError``), since replaying it without the base
 would be a different result.
 
@@ -30,6 +29,16 @@ persisted results". This module is that loop:
 Replayed state is bit-for-bit identical to an uninterrupted run (tested at
 every segment boundary), exact under the lazy/exponential decay policy.
 
+**Whole-stack recovery** (:func:`recover_service`): the serving stack is
+rt engine + background engine + interpolation cache (``core.background``);
+both engines consume the same hose, so one durable log serves both. Each
+engine restores from its *own* snapshot chain (its own log offset) and
+replays the shared tail under its *own* cadence authority, so the bg
+engine's slow decay/prune cadences replay exactly as they ran live.
+Ranking stays suppressed per engine until that engine's lag clears.
+:func:`recover_engine` and :func:`recover_service` restore through one
+path (``_restore_and_catch_up``).
+
 **Snapshot chains + fallback** (``distributed.fault_tolerance``): a
 snapshot step may be a *delta* (changed slots only) chained to the last
 full snapshot via its manifest (``kind``/``base_step``/``sha256``). The
@@ -49,6 +58,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..core.background import AssistanceService, background_config
 from ..core.engine import EngineConfig, SearchAssistanceEngine, TickStack
 from ..core.hashing import from_np_u32, split_fp
 from ..core.stores import resolve_device
@@ -230,31 +240,28 @@ def _maybe_restore_base(engine: SearchAssistanceEngine,
         f"is not ported to repro_torch yet")
 
 
-def recover_engine(cfg: EngineConfig, ckpt: CheckpointManager, log_dir: str,
-                   rcfg: ReplayConfig = ReplayConfig(), name: str = "rt",
-                   log_name: str = "firehose",
-                   target_tick: Optional[int] = None,
-                   step: Optional[int] = None, device=None) -> tuple:
-    """The full crash-recovery path: snapshot restore + catch-up replay, on
-    ``device`` (CUDA unless named).
-
-    Returns ``(engine, stats)``; the engine is caught up to the log head
-    (or ``target_tick``) and ready for live ingestion, its handoff rank
-    cycle run. ``step`` picks a specific snapshot (default: the newest).
-    The restore walks the snapshot's delta chain; a torn/corrupt chain
-    member falls back to the newest intact full snapshot
-    (``stats["restore"]``) and the replay tail grows to cover the
-    difference. ``stats["restore_ms"]`` is the restore's cost split.
-    """
-    _check_snapshot_layout(cfg, ckpt, step)
+def _restore_and_catch_up(cfg: EngineConfig, ckpt: CheckpointManager,
+                          reader: FirehoseLogReader,
+                          rcfg: ReplayConfig, name: str,
+                          target_tick: Optional[int],
+                          step: Optional[int], device) -> tuple:
+    """Restore one engine on ``device`` (fresh when no snapshot exists:
+    a cold engine replays the whole retained log) and replay its tail from
+    the shared, already-validated reader. The stats add ``restore_s`` and
+    ``restore_ms`` (the restore's cost split; empty for a cold engine)."""
     t0 = time.perf_counter()
-    engine, log_tick = SearchAssistanceEngine.restore_from_snapshot(
-        cfg, ckpt, step=step, name=name, device=device)
+    if step is None and ckpt.latest_step() is None:
+        engine, log_tick = SearchAssistanceEngine(cfg, name, device), None
+        restore_ms = {}
+    else:
+        _check_snapshot_layout(cfg, ckpt, step)
+        engine, log_tick = SearchAssistanceEngine.restore_from_snapshot(
+            cfg, ckpt, step=step, name=name, device=device)
+        if int(engine.state.tick) != log_tick:
+            raise ValueError(f"snapshot offset mismatch: state at tick "
+                             f"{int(engine.state.tick)}, log_tick {log_tick}")
+        restore_ms = dict(ckpt.last_restore_ms)
     restore_s = time.perf_counter() - t0
-    if int(engine.state.tick) != log_tick:
-        raise ValueError(f"snapshot offset mismatch: state at tick "
-                         f"{int(engine.state.tick)}, log_tick {log_tick}")
-    reader = FirehoseLogReader(log_dir, name=log_name)
     restore_info = dict(ckpt.last_restore)
     base_info = _maybe_restore_base(engine, reader, target_tick)
     stats = CatchUpController(engine, reader, rcfg).catch_up(target_tick,
@@ -262,6 +269,66 @@ def recover_engine(cfg: EngineConfig, ckpt: CheckpointManager, log_dir: str,
     stats["restored_step"] = log_tick
     stats["restore"] = restore_info
     stats["restore_s"] = restore_s
-    stats["restore_ms"] = dict(ckpt.last_restore_ms)
+    stats["restore_ms"] = restore_ms
     stats["base"] = base_info
     return engine, stats
+
+
+def recover_engine(cfg: EngineConfig, ckpt: CheckpointManager, log_dir: str,
+                   rcfg: ReplayConfig = ReplayConfig(), name: str = "rt",
+                   target_tick: Optional[int] = None,
+                   step: Optional[int] = None, device=None) -> tuple:
+    """The full crash-recovery path: snapshot restore + catch-up replay, on
+    ``device`` (CUDA unless named).
+
+    Returns ``(engine, stats)``; the engine is caught up to the log head
+    (or ``target_tick``) and ready for live ingestion, its handoff rank
+    cycle run. ``step`` picks a specific snapshot (default: the newest);
+    with no snapshot at all it raises ``FileNotFoundError``. The restore
+    walks the snapshot's delta chain; a torn/corrupt chain member falls
+    back to the newest intact full snapshot (``stats["restore"]``) and the
+    replay tail grows to cover the difference. ``stats["restore_ms"]`` is
+    the restore's cost split.
+    """
+    if step is None and ckpt.latest_step() is None:
+        raise FileNotFoundError(f"no checkpoints in {ckpt.dir}")
+    reader = FirehoseLogReader(log_dir)
+    return _restore_and_catch_up(cfg, ckpt, reader, rcfg, name, target_tick,
+                                 step, device)
+
+
+def recover_service(rt_cfg: EngineConfig, rt_ckpt: CheckpointManager,
+                    bg_ckpt: CheckpointManager, log_dir: str,
+                    rcfg: ReplayConfig = ReplayConfig(), *,
+                    bg_cfg: Optional[EngineConfig] = None,
+                    target_tick: Optional[int] = None,
+                    rt_step: Optional[int] = None,
+                    bg_step: Optional[int] = None, device=None) -> tuple:
+    """Crash-recover the WHOLE serving stack (rt + bg + interpolation), on
+    ``device`` (CUDA unless named).
+
+    Restores the real-time and background engines from their respective
+    snapshot directories (each records its own ``log_tick`` offset) and
+    replays the shared firehose-log tail for each, the bg engine under
+    *its* cadence authority (slow decay/prune cadences replay exactly as
+    live), with ranking suppressed per engine until that engine's lag
+    clears; each engine ranks at its own handoff. An engine with no
+    snapshot yet (crash before its first persist) cold-starts and replays
+    the whole retained log. Finally the interpolation cache is rebuilt
+    from both fresh tables.
+
+    Returns ``(service, stats)`` with per-engine stats under ``stats["rt"]``
+    and ``stats["bg"]``. The result is bit-exact vs. an uninterrupted
+    service run (tested at every log-segment boundary).
+    """
+    device = resolve_device(device)
+    bg_cfg = bg_cfg if bg_cfg is not None else background_config(rt_cfg)
+    # ONE reader validates the log once; both engines replay from it.
+    reader = FirehoseLogReader(log_dir)
+    rt_eng, rt_stats = _restore_and_catch_up(
+        rt_cfg, rt_ckpt, reader, rcfg, "rt", target_tick, rt_step, device)
+    bg_eng, bg_stats = _restore_and_catch_up(
+        bg_cfg, bg_ckpt, reader, rcfg, "bg", target_tick, bg_step, device)
+    service = AssistanceService(rt=rt_eng, bg=bg_eng)
+    service.refresh_cache()
+    return service, {"rt": rt_stats, "bg": bg_stats}

@@ -139,3 +139,52 @@ def test_spelling_cycle_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         spelling_cycle(*args)
     assert spelling_cycle(*args, device="cpu") == {2: (1, 1.0)}
+
+
+def _assistance_service(tmp_path, **kw):
+    from repro_torch.core.background import AssistanceService
+    return AssistanceService(_cfg(), **kw).bg.device
+
+
+def _recover_service(tmp_path, **kw):
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    from repro_torch.streaming import recover_service
+    svc, _ = recover_service(_cfg(), CheckpointManager(str(tmp_path / "rt")),
+                             CheckpointManager(str(tmp_path / "bg")),
+                             str(tmp_path / "log"), **kw)
+    return svc.rt.device
+
+
+def _serve_assist_run(tmp_path, **kw):
+    from repro_torch.data.stream import StreamConfig
+    from repro_torch.launch import serve_assist
+    res = serve_assist.run(
+        _cfg(), StreamConfig(vocab_size=64, n_users=16, queries_per_tick=8,
+                             tweets_per_tick=2),
+        serve_assist.AssistOptions(ticks=1, out=str(tmp_path), replicas=2,
+                                   fail_replica_at=-1, crash_at=-1,
+                                   recover=False, full_every=4,
+                                   slow_io_ms=0.0),
+        log=lambda s: None, **kw)
+    return res["bg"].device
+
+
+def _serve_assist_main(tmp_path, device=None):
+    from repro_torch.launch import serve_assist
+    argv = ["--ticks", "1", "--replicas", "1", "--out", str(tmp_path)]
+    assert serve_assist.main(argv + (["--device", device] if device else
+                                     [])) == 0
+    return torch.device(device)
+
+
+@pytest.mark.parametrize("entry", [_assistance_service, _recover_service,
+                                   _serve_assist_run, _serve_assist_main],
+                         ids=lambda f: f.__name__.lstrip("_"))
+def test_serving_entry_points_default_to_cuda_and_refuse_without_it(
+        monkeypatch, tmp_path, entry):
+    """The serving stack's entry points run on CUDA unless the caller asks
+    for the CPU, and raise where CUDA is absent."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(tmp_path / "cuda")
+    assert entry(tmp_path / "cpu", device="cpu").type == "cpu"

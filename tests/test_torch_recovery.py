@@ -245,16 +245,16 @@ def test_snapshot_restore_refuses_the_other_layout(tmp_path):
 
 
 def test_delta_shadow_owns_its_bytes_on_the_cpu(tmp_path):
-    """On the CPU ``state_arrays()`` aliases the live tensors, which the
-    stores then mutate in place. The manager's shadow must be its own copy:
-    a delta after more steps is non-empty, and restoring it gives the live
-    state."""
+    """On the CPU ``.numpy()`` of a store tensor aliases it, and the stores
+    mutate their tensors in place. The manager's shadow must be its own
+    copy: a delta after more steps is non-empty, and restoring it gives the
+    live state."""
     cfg = _cfg("sweep", rank_every=0)
     eng = _engine(cfg)
     batches = _batches(6, seed=5)
     for ev, tw in batches[:3]:
         eng.step(ev, tw)
-    aliased = eng.state_arrays()["leaf_4"]        # qstore weight, a view
+    aliased = eng.state.qstore.lanes["weight"].numpy()   # leaf_4, a view
     ckpt = CheckpointManager(str(tmp_path), keep_n=0, full_interval=4)
     eng.save_snapshot(ckpt)
     before = aliased.copy()
