@@ -139,7 +139,38 @@ Phases, each of which must pass:
      peak device memory and the phase's launches (counts set to 0 before,
      read after). ``decay_prune_multi``, ``score_gate``, ``bucket_topk``
      and ``edit_distance`` must launch, and the tick-72 answer must be
-     non-empty and come from the tick-72 table.
+     non-empty and come from the tick-72 table;
+  9. a flash crowd at deployment scale — ``serve_assist``'s loop on the
+     hash configuration under its firehose workload (1,024 queries and 64
+     tweets a 10-s tick, a 50x spike from tick 16 capped at 16,384
+     queries, spam bursts), with overload control (``--slo-ms``
+     ``FLASH_SLO_FACTOR`` times the slowest of eight warm base-traffic
+     steps the phase times first, ``--tick-ms`` ``FLASH_TICK_MS``; the
+     follower replica as a mirror) and log compaction every 16 ticks keeping 2
+     bases; the stack crashes after tick 39, inside the shed window, right
+     after sealing its log; the drained engines' states are kept on the
+     host; ``recover_service`` from the state snapshots older than the
+     newest base must go through that base and equal them bit for bit;
+     the loop resumes with ``recover`` through tick 47 (each engine takes
+     the base only where its snapshot is older) and the head query
+     ``breaking0 term0`` must be answered, non-empty, from the newest
+     table; then a cold rt engine restores the newest base and replays the
+     tail (the segments below the retained floor are gone from disk), and,
+     with the newest base torn (``corrupt_base``), falls back to the
+     previous one (counted), each bit for bit. At every ladder level
+     entered, queries and tweets offered equal those logged plus those
+     shed, and the shed rank cycles are counted; level 3 must be reached
+     (pinned from tick 30 if the live triggers have not reached it, which
+     the output says). Printed with the card's name and power limit: ms
+     per stack tick for base and spike ticks, the live step percentiles,
+     ticks at each level, escalations and shed counts, flushes, each
+     compaction's split per engine (restore, fold replay, base save, base
+     bytes) and the log's bytes before and after, each save's ms, time to
+     fresh through the base and with the fallback against the 80-s rank
+     period, the frontends' lags, peak device memory and the phase's
+     launches (``decay_prune_multi``, ``score_gate`` and ``bucket_topk``
+     must launch); then ``score_gate`` and ``bucket_topk`` held against
+     their plain versions on the inputs of the phase's last rank cycle.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -155,6 +186,7 @@ each engine kernel's summed device time, ``chain_find`` and
 hash cell (``score_gate`` and ``bucket_topk`` in its rank cycle), then
 times ``score_gate``'s and ``assoc_score``'s bare launches on the
 synthetic lanes and on the lanes its last rank cycle gave ``score_gate``.
+``--flash-crowd-only`` builds the kernels and runs phase 9 alone.
 ``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
 DIR lies inside this checkout (a parent commit unpacked with ``git
 archive`` under ``build/``), so one call on one card profiles two trees.
@@ -539,10 +571,11 @@ def check_assoc_score(C: int, dev, floor):
                 ms_by_route=r["ms_by_route"])
 
 
-def check_score_path_lanes(call, tick, floor):
+def check_score_path_lanes(call, tick, floor, label=None):
     """score_gate and assoc_score on the lanes the hash path's rank cycle of
-    ``tick`` passed score_gate (an untimed replay): score_gate_report on
-    them, and assoc_score_report on the same six lanes."""
+    ``tick`` passed score_gate (an untimed replay; ``label`` names other
+    lanes): score_gate_report on them, and assoc_score_report on the same
+    six lanes."""
     import torch
     a, kw = call
     w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c = a
@@ -554,7 +587,7 @@ def check_score_path_lanes(call, tick, floor):
     gates = dict(min_pair_weight=kw["min_pair_weight"],
                  min_src_weight=kw["min_src_weight"],
                  min_pair_count=kw["min_pair_count"])
-    label = f"hash path lanes, tick {tick}"
+    label = label or f"hash path lanes, tick {tick}"
     sc = [total_w, total_c, total_w.new_zeros(())]
     sg = score_gate_report(label, lanes, ok, None, sc, None, gates,
                            kw["coefs"], floor)
@@ -2572,6 +2605,469 @@ def check_serving_spelling(dev, job, n_launches: int) -> None:
     recheck_spelling(dev, job)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: a flash crowd, overload control and log compaction at deployment
+# scale, with a crash in the shed window.
+# ---------------------------------------------------------------------------
+
+# serve_assist's firehose workload: 1,024 queries and 64 tweets a tick at
+# base, a 50x breaking-news spike from tick 16 (capped at 16,384 queries a
+# tick), spam bursts; a tick is 10 s of traffic. The stack runs live
+# through tick 39 (inside the shed window), crashes right after sealing
+# its log, and resumes with ``recover`` through tick 47. Compaction folds
+# both engines every 16 ticks, keeping 2 bases.
+FLASH_SPIKE_AT = 16
+FLASH_CRASH_AT = 39
+FLASH_TICKS = 48
+FLASH_COMPACT_EVERY = 16
+FLASH_KEEP_BASES = 2
+# The SLO is this multiple of the slowest base-traffic step the phase
+# measures before its run (three engines stepping base ticks 0-7 again,
+# warm), so base ticks stay under it and spike ticks (16x the queries, 32x
+# the tweets) do not; measured cold, one-time module loading in the first
+# tick would hold the p95 up for ~20 ticks. The arrival budget a tick
+# leaves base traffic and its persists ahead of schedule on an H100, and
+# the ~20-s fold at tick 32 puts the spike window behind (PERF.md §4, §5).
+FLASH_SLO_FACTOR = 1.5
+FLASH_TICK_MS = 1500.0
+# If the live triggers have not reached level 3 by this tick, the ladder is
+# pinned at 3 from here to the crash (``DegradationLadder.force``), and the
+# phase says so.
+FLASH_PIN_FROM = 30
+FLASH_KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk")
+
+
+def _flash_spies():
+    """Keep the arguments of the last score_gate and bucket_topk calls
+    (cloned); returns (kept, undo)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    kept = {"score_gate": None, "bucket_topk": None}
+    score_gate, bucket_topk = kops.score_gate, kops.bucket_topk
+
+    def keep_score_gate(*a, **kw):
+        kept["score_gate"] = (tuple(t.clone() if torch.is_tensor(t) else t
+                                    for t in a), dict(kw))
+        return score_gate(*a, **kw)
+
+    def keep_bucket_topk(grid, k):
+        kept["bucket_topk"] = (grid.clone(), k)
+        return bucket_topk(grid, k)
+
+    kops.score_gate, kops.bucket_topk = keep_score_gate, keep_bucket_topk
+
+    def undo():
+        kops.score_gate, kops.bucket_topk = score_gate, bucket_topk
+    return kept, undo
+
+
+def _pin_ladder(pinned):
+    """Wrap ``DegradationLadder.observe``: the n-th observation of a fresh
+    ladder is tick n of the live run; from ``FLASH_PIN_FROM`` on, a ladder
+    below level 3 is pinned there. Returns undo."""
+    from repro_torch.streaming import overload as tov
+    observe = tov.DegradationLadder.observe
+
+    def observe_or_pin(self, **kw):
+        n = self.__dict__.setdefault("_n_observed", 0)
+        self._n_observed = n + 1
+        if n >= FLASH_PIN_FROM and self.level < 3 and pinned["from"] is None:
+            pinned["from"] = n
+            self.force(3)
+        return observe(self, **kw)
+
+    tov.DegradationLadder.observe = observe_or_pin
+
+    def undo():
+        tov.DegradationLadder.observe = observe
+    return undo
+
+
+def _flash_base_step_ms(dev, cfg, bgcfg):
+    """Warm the process's kernels and allocator on base traffic, and time
+    it: the phase's three engines (two rt, bg) step the firehose
+    workload's base ticks 0-7 twice (spam ticks, a decay cycle, a rank
+    cycle in the second pass); returns the second pass's ms a tick (all
+    three engines, synced)."""
+    import torch
+    from repro_torch.core.engine import SearchAssistanceEngine
+    from repro_torch.launch import serve_assist
+    wl = serve_assist.firehose_workload(FLASH_SPIKE_AT, 50.0)
+    ticks = [wl.gen_tick(t) for t in range(8)]
+    engines = [SearchAssistanceEngine(c, n, dev) for c, n in
+               ((cfg, "rt"), (cfg, "rt1"), (bgcfg, "bg"))]
+    ms = []
+    for _ in range(2):
+        for ev, tw in ticks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for e in engines:
+                e.step(ev, tw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    del engines
+    torch.cuda.empty_cache()
+    return ms[len(ticks):]
+
+
+def _levels_balance(ticks):
+    """Per ladder level: queries and tweets offered, shed and logged (what
+    admission let into the durable log). Raises unless offered = logged +
+    shed at every level, for each hose."""
+    out = {}
+    for r in ticks:
+        o = r["overload"]
+        lv = out.setdefault(o["level"], {k: 0 for k in (
+            "ticks", "offered_events", "shed_events", "logged_events",
+            "offered_tweets", "shed_tweets", "logged_tweets")})
+        lv["ticks"] += 1
+        for k in lv:
+            if k != "ticks":
+                lv[k] += o[k]
+    for level, lv in out.items():
+        for hose in ("events", "tweets"):
+            if lv[f"offered_{hose}"] != lv[f"logged_{hose}"] + \
+                    lv[f"shed_{hose}"]:
+                raise AssertionError(f"flash crowd: {hose} at level {level} "
+                                     f"do not balance: {lv}")
+    return dict(sorted(out.items()))
+
+
+def run_flash_crowd(dev, card: str, floor):
+    """Phase 9: ``serve_assist``'s loop on the hash deployment cell under
+    its firehose workload with overload control and compaction; a crash in
+    the shed window; recovery through the newest base (``recover_service``
+    from the snapshots older than it), replay from zero through the base
+    after the trim, a torn newest base falling back to the previous one,
+    each bit for bit against host copies of the drained engines; then the
+    resumed run. Holds score_gate and bucket_topk against their plain
+    versions on the inputs of the phase's last rank cycle. Returns the
+    phase's launch counts."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.background import background_config
+    from repro_torch.core.engine import SearchAssistanceEngine, rank_due
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    from repro_torch.launch import serve_assist
+    from repro_torch.streaming import (CatchUpController, FirehoseLogReader,
+                                       ReplayConfig, corrupt_base,
+                                       recover_service, restore_from_base)
+    t_phase = time.perf_counter()
+    cfg, base = deployment_config("hash")
+    bgcfg = background_config(cfg, rank_every_mult=3)
+    rank_period_ms = cfg.rank_every * 10.0 * 1e3     # 10-s ticks
+    base_ms = _flash_base_step_ms(dev, cfg, bgcfg)
+    slo_ms = FLASH_SLO_FACTOR * max(base_ms)
+    log(f"[9] flash crowd ({card}): base traffic, three engines a tick "
+        f"(ticks 0-7, warm): {[round(x, 3) for x in base_ms]} ms; slo_ms = "
+        f"{FLASH_SLO_FACTOR} x {max(base_ms):.3f} = {slo_ms:.3f}, tick_ms "
+        f"{FLASH_TICK_MS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kept, undo_spies = _flash_spies()
+    pinned = {"from": None}
+    undo_pin = _pin_ladder(pinned)
+    lines, walls = [], {}
+    tk.reset_launches()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_") as tmp:
+            log_dir = os.path.join(tmp, "log")
+            opts = serve_assist.AssistOptions(
+                ticks=FLASH_TICKS, out=tmp, replicas=2, fail_replica_at=-1,
+                crash_at=FLASH_CRASH_AT, recover=False, full_every=4,
+                slow_io_ms=0.0, slo_ms=slo_ms, tick_ms=FLASH_TICK_MS,
+                workload="firehose", spike_at=FLASH_SPIKE_AT,
+                spike_mult=50.0, compact_every=FLASH_COMPACT_EVERY,
+                keep_bases=FLASH_KEEP_BASES)
+            t0 = time.perf_counter()
+            live = serve_assist.run(cfg, base, opts, dev, log=lines.append)
+            walls["live_run"] = time.perf_counter() - t0
+            undo_pin()
+            if live["crashed_at"] != FLASH_CRASH_AT:
+                raise AssertionError("flash crowd: no crash")
+            # the crash comes right after the writer sealed its segment:
+            # every offered tick is in the log; the drained engines hold
+            # them all
+            live["writer"].flush()
+            svc = live["service"]
+            svc.drain()
+            torch.cuda.synchronize()
+            end = FLASH_CRASH_AT + 1
+            copies = {"rt": svc.rt.state_arrays(),
+                      "bg": svc.bg.state_arrays()}
+            if int(svc.rt.state.tick) != end or not arrays_bits_equal(
+                    live["backends"][1].state_arrays(), copies["rt"]):
+                raise AssertionError("flash crowd: the mirror differs from "
+                                     "the leader, or the drain fell short")
+            ov = svc.overload.stats_snapshot()
+            c = svc.overload.counters
+            for hose in ("events", "tweets"):
+                if c[f"n_offered_{hose}"] != c[f"n_ingested_{hose}"] + \
+                        c[f"n_shed_{hose}"]:
+                    raise AssertionError(f"flash crowd: {hose} shed "
+                                         f"silently: {c}")
+            levels = _levels_balance(live["ticks"])
+            logged = {h: sum(lv[f"logged_{h}"] for lv in levels.values())
+                      for h in ("events", "tweets")}
+            if logged["events"] != c["n_ingested_events"] or \
+                    logged["tweets"] != c["n_ingested_tweets"]:
+                raise AssertionError(f"flash crowd: logged {logged}, "
+                                     f"ingested {c}")
+            dues = {e: sum(rank_due(x, t) for t in range(end))
+                    for e, x in (("rt", cfg), ("bg", bgcfg))}
+            for e in ("rt", "bg"):
+                if c[f"n_rank_run_{e}"] + c[f"n_shed_rank_{e}"] != dues[e]:
+                    raise AssertionError(f"flash crowd: {e} rank cycles "
+                                         f"{c}, {dues[e]} due")
+            if max(levels) != 3:
+                raise AssertionError(f"flash crowd: level 3 never reached: "
+                                     f"{ov['level_ticks']}")
+            ticks, saves = list(live["ticks"]), list(live["saves"])
+            compactions = live["compactions"]
+            del live, svc
+            torch.cuda.empty_cache()
+
+            # the trim: segments below the retained floor are gone
+            reader = FirehoseLogReader(log_dir)
+            last = compactions[-1]["stats"]
+            newest = reader.floor_tick()
+            on_disk = sorted(f for f in os.listdir(log_dir)
+                             if f.endswith(".npz"))
+            if newest != last["floor"] or \
+                    reader.first_tick() < last["retain_floor"] or \
+                    on_disk != sorted(s.file for s in reader.segments) or \
+                    reader.last_tick() != FLASH_CRASH_AT:
+                raise AssertionError(f"flash crowd: log after the trim: "
+                                     f"{reader.segments}, {reader.bases}")
+            # (a) recover_service through the newest base: both engines
+            # from the newest state snapshot older than the base
+            cks = {e: CheckpointManager(os.path.join(tmp, "state", e))
+                   for e in ("rt", "bg")}
+            older = {e: max(s for s in ck.steps() if s < newest)
+                     for e, ck in cks.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec, rstats = recover_service(
+                cfg, cks["rt"], cks["bg"], log_dir,
+                ReplayConfig(chunk_ticks=8), bg_cfg=bgcfg,
+                rt_step=older["rt"], bg_step=older["bg"], device=dev)
+            torch.cuda.synchronize()
+            fresh = {"base": (time.perf_counter() - t0) * 1e3}
+            recovery = {}
+            for e, eng in (("rt", rec.rt), ("bg", rec.bg)):
+                st = rstats[e]
+                if (st["base"] or {}).get("base_tick") != newest or \
+                        int(eng.state.tick) != end or \
+                        not arrays_bits_equal(eng.state_arrays(), copies[e]):
+                    raise AssertionError(f"flash crowd: {e} through the base"
+                                         f" differs: {st}")
+                recovery[e] = {
+                    "snapshot": st["restored_step"], "base": newest,
+                    "ticks_replayed": st["n_ticks"],
+                    "snapshot_restore_ms": st["restore_s"] * 1e3,
+                    "base_restore_ms": st["base"]["restore_s"] * 1e3,
+                    "replay_ms": (st["wall_s"] - st["rank_s"]) * 1e3,
+                    "rank_ms": st["rank_s"] * 1e3}
+            del rec
+            torch.cuda.empty_cache()
+
+            # the resumed run, through tick 47
+            opts = dataclasses.replace(opts, crash_at=-1, recover=True)
+            t0 = time.perf_counter()
+            res = serve_assist.run(cfg, base, opts, dev, log=lines.append)
+            walls["resumed_run"] = time.perf_counter() - t0
+            rs = res["recover"]
+            for e in ("rt", "bg"):
+                via_base = rs[e]["base"] is not None
+                if via_base != (rs[e]["restored_step"] < newest):
+                    raise AssertionError(f"flash crowd: resumed {e} took "
+                                         f"the {'base' if via_base else 'chain'}"
+                                         f": {rs[e]}")
+            route = res["serverset"].request_info(serve_assist.FIREHOSE_HEAD,
+                                                  k=8)
+            newest_table = CheckpointManager(os.path.join(tmp, "rt")).manifest()
+            metrics = res["frontends"][0].metrics()
+            if not route.suggestions or route.staleness != 0 or \
+                    route.tick != newest_table["meta"]["tick"]:
+                raise AssertionError(f"flash crowd: '{serve_assist.FIREHOSE_HEAD}'"
+                                     f" answered {route}, newest table "
+                                     f"{newest_table['meta']}")
+            resumed = {"from_tick": res["start_tick"],
+                       "recover": {e: {k: rs[e][k] for k in (
+                           "restored_step", "n_ticks")} | {
+                           "base": (rs[e]["base"] or {}).get("base_tick")}
+                           for e in ("rt", "bg")},
+                       "time_to_fresh_ms": rs["wall_s"] * 1e3,
+                       "overload": res["overload"]}
+            ticks += res["ticks"]
+            saves += res["saves"]
+            compactions += res["compactions"]
+            del res
+            # (b) replay from zero after the trim: a cold rt engine, no
+            # snapshot; (c) the newest base torn, the same cold recovery
+            # (both to the crash-time tick, after the resumed run)
+            cold = {}
+            for label in ("cold", "torn"):
+                if label == "torn":
+                    corrupt_base(log_dir, "rt")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng = SearchAssistanceEngine(cfg, "rt", dev)
+                state, tick, info = restore_from_base(log_dir, "rt",
+                                                      eng.state,
+                                                      max_tick=end)
+                eng.state = state
+                t1 = time.perf_counter()
+                st = CatchUpController(eng, FirehoseLogReader(log_dir),
+                                       ReplayConfig(chunk_ticks=8)).catch_up(
+                                           target_tick=end)
+                torch.cuda.synchronize()
+                fresh[label] = (time.perf_counter() - t0) * 1e3
+                want = newest if label == "cold" else last["prev_floor"]
+                if tick != want or info["fell_back"] != (label == "torn") \
+                        or not arrays_bits_equal(eng.state_arrays(),
+                                                 copies["rt"]):
+                    raise AssertionError(f"flash crowd: {label} recovery "
+                                         f"from base {tick} ({info}) differs")
+                cold[label] = {"base": tick, "fell_back": info["fell_back"],
+                               "ticks_replayed": st["n_ticks"],
+                               "restore_ms": (t1 - t0) * 1e3,
+                               "replay_ms": (st["wall_s"] - st["rank_s"])
+                               * 1e3, "rank_ms": st["rank_s"] * 1e3}
+                del eng, state
+                torch.cuda.empty_cache()
+            del copies
+            peak = torch.cuda.max_memory_allocated() / 2**30
+
+    finally:
+        undo_spies()
+        undo_pin()
+    launches = dict(tk.LAUNCHES)
+    missing = [n for n in FLASH_KERNELS if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"flash crowd: kernels not launched: {missing}")
+    base_ticks = [r for r in ticks if r["t"] < FLASH_SPIKE_AT]
+    spike_ticks = [r for r in ticks if r["t"] >= FLASH_SPIKE_AT]
+    by_kind = {}
+    for s in saves:
+        for e in ("rt", "bg"):
+            by_kind.setdefault(f"{e} {s[e]['kind']}", []).append(s[e]["ms"])
+    report = {
+        "card": card, "base_step_ms": base_ms, "slo_ms": slo_ms,
+        "tick_ms": FLASH_TICK_MS,
+        "crash_at": FLASH_CRASH_AT, "last_tick": FLASH_TICKS - 1,
+        "pinned_from": pinned["from"],
+        "stack_tick_ms": {"base": _ms_stats([r["stack_ms"]
+                                             for r in base_ticks]),
+                          "spike": _ms_stats([r["stack_ms"]
+                                              for r in spike_ticks])},
+        "step_ms_live": {k: ov[k] for k in ("step_p50_ms", "step_p95_ms",
+                                            "step_p99_ms")},
+        "level_ticks": ov["level_ticks"],
+        "n_escalations": ov["n_escalations"],
+        "n_deescalations": ov["n_deescalations"],
+        "levels": levels,
+        "shed": {k: ov[k] for k in ("n_shed_events", "n_shed_tweets",
+                                    "n_shed_rank_rt", "n_shed_rank_bg",
+                                    "n_rank_run_rt", "n_rank_run_bg",
+                                    "n_shed_total")},
+        "flushes": ov["n_flushes"], "flush_ticks": ov["n_flush_ticks"],
+        "per_tick": [{"t": r["t"], "level": r["overload"]["level"],
+                      "lag": round(r["overload"]["lag_hint"], 3),
+                      "backlog": r["overload"]["backlog"],
+                      "steps_ms": round(r["steps_ms"], 3),
+                      "persist_ms": round(r["persist_ms"], 3),
+                      "compact_ms": round(r["compact_ms"], 3)}
+                     for r in ticks],
+        "compactions": [{
+            "t": x["t"], "floor": x["stats"].get("floor"),
+            "retain_floor": x["stats"].get("retain_floor"),
+            "segments_dropped": x["stats"].get("n_segments_dropped"),
+            "wall_ms": x["stats"].get("wall_s", 0.0) * 1e3,
+            "engines": {e: {"start": v["start"], "ticks": v["n_ticks"],
+                            "restore_ms": v["restore_s"] * 1e3,
+                            "replay_ms": v["replay_s"] * 1e3,
+                            "save_ms": v["save_s"] * 1e3,
+                            "base_raw_bytes": v["base_raw_bytes"],
+                            "base_bytes": v["base_bytes"]}
+                        for e, v in x["stats"].get("engines", {}).items()},
+            "log_bytes_before": x["bytes_before"],
+            "log_bytes_after": x["bytes_after"]} for x in compactions],
+        "save_ms": {k: _ms_stats(v) for k, v in by_kind.items()},
+        "recovery_through_base": recovery, "cold": cold,
+        "time_to_fresh_ms": fresh, "rank_period_ms": rank_period_ms,
+        "resumed": resumed, "rt_lag_ticks": metrics["rt_lag_ticks"],
+        "bg_lag_ticks": metrics["bg_lag_ticks"],
+        "answer": {"query": serve_assist.FIREHOSE_HEAD, "tick": route.tick,
+                   "suggestions": route.suggestions},
+        "walls_s": walls, "peak_mem_gib": peak,
+        "launches": {n: k for n, k in launches.items() if k}}
+    log(f"[9] flash crowd ({card}): " + json.dumps(report))
+    for line in lines:
+        if any(w in line for w in ("CRASH", "recover", "compacted",
+                                   "related", "[done]")):
+            log("  " + line.strip())
+    for kind in ("base", "spike"):
+        st = report["stack_tick_ms"][kind]
+        log(f"  flash crowd ({card}): {kind} ticks, ms per stack tick p50 "
+            f"{st['p50']:.3f}, p99 {st['p99']:.3f}, max {st['max']:.3f} "
+            f"(n {st['n']})")
+    log(f"  flash crowd ({card}): live step p50/p95/p99 "
+        f"{report['step_ms_live']}; ticks at levels 0-3 {ov['level_ticks']},"
+        f" {ov['n_escalations']} escalations, {ov['n_deescalations']} "
+        f"de-escalations"
+        + (f"; LADDER PINNED at level 3 from tick {pinned['from']} (the "
+           f"live triggers had not reached it)" if pinned["from"] is not None
+           else "; every rung reached by the live triggers")
+        + f"; shed {report['shed']}; {ov['n_flushes']} flushes for "
+        f"{ov['n_flush_ticks']} ticks")
+    for level, lv in levels.items():
+        log(f"  flash crowd: level {level}: {lv} (offered = logged + shed)")
+    for x in report["compactions"]:
+        log(f"  flash crowd ({card}): compaction at tick {x['t']}: floor "
+            f"{x['floor']}, retained from {x['retain_floor']}, "
+            f"{x['segments_dropped']} segments dropped, "
+            f"{x['wall_ms']:.3f} ms; log bytes on disk "
+            f"{x['log_bytes_before']} -> {x['log_bytes_after']}; "
+            + "; ".join(f"{e} from {v['start']} ({v['ticks']} ticks): "
+                        f"restore {v['restore_ms']:.3f} + replay "
+                        f"{v['replay_ms']:.3f} + save {v['save_ms']:.3f} ms,"
+                        f" base {v['base_raw_bytes']} B raw, "
+                        f"{v['base_bytes']} B on disk"
+                        for e, v in x["engines"].items()))
+    for k, v in report["save_ms"].items():
+        log(f"  flash crowd ({card}): {k} save ms mean {v['mean']:.3f} "
+            f"(n {v['n']}, max {v['max']:.3f})")
+    log(f"  flash crowd ({card}): time to fresh against the "
+        f"{rank_period_ms:.0f}-ms rank period: recover_service through the "
+        f"tick-{newest} base {fresh['base']:.3f} ms ({recovery}); cold rt "
+        f"from the base {fresh['cold']:.3f} ms; torn newest base, fell back "
+        f"to {cold['torn']['base']}: {fresh['torn']:.3f} ms ({cold}); all "
+        f"bit-exact against the drained engines at tick {FLASH_CRASH_AT + 1}")
+    log(f"  flash crowd ({card}): resumed from tick {resumed['from_tick']}:"
+        f" {resumed['recover']}, {resumed['time_to_fresh_ms']:.3f} ms to "
+        f"fresh; '{serve_assist.FIREHOSE_HEAD}' at tick {route.tick}: "
+        f"{route.suggestions}; rt_lag_ticks {metrics['rt_lag_ticks']}, "
+        f"bg_lag_ticks {metrics['bg_lag_ticks']}; peak {peak:.3f} GiB")
+    log(f"  flash crowd launches: {report['launches']}")
+    (a, kw), grid = kept["score_gate"], kept["bucket_topk"]
+    log("[9] score_gate and bucket_topk on the inputs of the phase's last "
+        "rank cycle (held against their plain versions)")
+    lanes = check_score_path_lanes((a, kw), None, floor,
+                                   "flash crowd, last rank cycle's lanes")
+    log(f"  score_gate at the flash crowd's last lanes: "
+        f"{json.dumps(lanes['score_gate'])}")
+    topk = check_bucket_topk_path_grid("flash crowd, last rank cycle",
+                                       *grid)
+    log(f"  bucket_topk at the flash crowd's last grid: {json.dumps(topk)}")
+    del kept
+    torch.cuda.empty_cache()
+    log(f"  flash crowd phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def profile_region() -> None:
     """The region cell's 17 ticks, then one more ingest tick and one rank
     cycle under the profiler, on the ``repro_torch`` package on the path."""
@@ -2642,6 +3138,9 @@ def main() -> int:
                     help="profile the hash cell's ingest tick and rank "
                          "cycle and time score_gate and assoc_score, and "
                          "nothing else")
+    ap.add_argument("--flash-crowd-only", action="store_true",
+                    help="build the kernels and run phase 9 (the flash "
+                         "crowd), and nothing else")
     ap.add_argument("--root", default=str(ROOT),
                     help="with --profile-region-only or --profile-hash-only:"
                          " a directory inside this checkout whose "
@@ -2675,6 +3174,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     t_start = time.perf_counter()
+    if args.flash_crowd_only:
+        log(f"[1] card: {card} | torch {torch.__version__} cuda "
+            f"{torch.version.cuda}")
+        for stem in build.build_all():
+            build.load(stem)
+        run_flash_crowd(dev, card, score_floor())
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # ---- 1. card and build ----
     log(f"[1] card: {card} | torch {torch.__version__} cuda "
@@ -2814,6 +3321,10 @@ def main() -> int:
 
     # ---- 8. the serving stack at deployment scale ----
     launches["serving"] = run_serving(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 9. a flash crowd, overload control and log compaction ----
+    launches["flash_crowd"] = run_flash_crowd(dev, card, floor)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

@@ -6,9 +6,8 @@ parameter settings (decay, pruning, etc.)" — we instantiate a second engine
 with a slow decay config and a lower ranking cadence; the frontend
 interpolates its suggestions with the real-time engine's.
 
-Port of the JAX package's ``core/background.py``. Its overload control
-(``slo``, ``mirrors``, ``drain`` and the ``overload`` controller) is not
-ported: it comes with ``streaming/overload.py``, its caller.
+Port of the JAX package's ``core/background.py``, overload control
+included (``slo``, ``mirrors``, ``drain``; ``streaming/overload.py``).
 """
 from __future__ import annotations
 
@@ -73,6 +72,14 @@ class AssistanceService:
     from its offset at the bg cadences), then rebuilds this cache.
     Recovery hands over both restored engines (``rt`` and ``bg``).
 
+    With ``slo`` set (a ``streaming.overload.SLOConfig``), ``step`` routes
+    through an :class:`~repro_torch.streaming.overload.OverloadController`:
+    lag-adaptive micro-batching over ``step_many`` plus the degradation
+    ladder (shed rt ranking -> stretch bg ranking -> admission-control
+    ingest), every shed counted. ``mirrors`` are extra follower rt engines
+    fed the same flushed stacks (replica failover), each holding its own
+    state.
+
     Engines made here live on ``device``: CUDA unless the caller names
     another, raising where CUDA is asked for and absent.
     """
@@ -81,7 +88,7 @@ class AssistanceService:
                  bg_cfg: Optional[EngineConfig] = None,
                  rt: Optional[SearchAssistanceEngine] = None,
                  bg: Optional[SearchAssistanceEngine] = None,
-                 device=None):
+                 device=None, slo=None, mirrors=()):
         if rt is not None and bg is not None:
             self.rt, self.bg = rt, bg
         elif rt is None and bg is None and rt_cfg is not None:
@@ -93,15 +100,29 @@ class AssistanceService:
             raise ValueError("AssistanceService takes rt_cfg, or both the "
                              "rt and bg engines")
         self._cache: Dict[int, List[Tuple[int, float]]] = {}
+        self.overload = None
+        if slo is not None:
+            # late: streaming imports this module (recover_service)
+            from ..streaming.overload import OverloadController
+            self.overload = OverloadController(self, slo, mirrors=mirrors)
 
-    def step(self, query_events=None, tweets=None, *,
-             log_append=None) -> Optional[Dict]:
+    def step(self, query_events=None, tweets=None, *, log_append=None,
+             lag_hint: float = 0.0) -> Optional[Dict]:
         """Feed one tick to both engines; returns the per-engine rank-cycle
         stats (``{"rt": ..., "bg": ...}``) when either engine ranked.
 
-        ``log_append(tick, events, tweets)`` is called BEFORE ingestion
-        (durability precedes state mutation).
+        ``log_append(tick, events, tweets)`` is called BEFORE ingestion in
+        both paths (durability precedes state mutation — under overload
+        control it receives the admission-controlled batch, which is what
+        makes mid-shed crash recovery bit-exact). ``lag_hint`` is the
+        caller's external backlog estimate in ticks (arrival tick minus
+        ingested tick under simulated pacing); the overload controller
+        max-combines it with its own buffer backlog.
         """
+        if self.overload is not None:
+            return self.overload.offer(query_events, tweets,
+                                       log_append=log_append,
+                                       lag_hint=lag_hint)
         if log_append is not None:
             log_append(int(self.rt.state.tick), query_events, tweets)
         r1 = self.rt.step(query_events, tweets)
@@ -109,6 +130,13 @@ class AssistanceService:
         if r1 is not None or r2 is not None:
             self.refresh_cache()
             return {"rt": r1, "bg": r2}
+        return None
+
+    def drain(self) -> Optional[Dict]:
+        """Flush any ticks the overload micro-batcher still buffers (no-op
+        without overload control)."""
+        if self.overload is not None:
+            return self.overload.drain()
         return None
 
     def refresh_cache(self) -> None:
@@ -132,6 +160,14 @@ class AssistanceService:
         delta snapshots pay off most — few slots change per interval, so
         the chain lets the snapshot cadence shrink without a write-volume
         blowup, and the replay tail (time-to-fresh) shrinks with it.
+
+        Under overload control the controller's stats ride along in the
+        meta (``overload`` key) so frontends can surface the degradation
+        level and shed counters of the backend that produced the tables.
         """
+        if self.overload is not None:
+            extra_meta = dict(extra_meta or {})
+            extra_meta.setdefault("overload",
+                                  self.overload.stats_snapshot())
         return (self.rt.save_snapshot(rt_ckpt, extra_meta),
                 self.bg.save_snapshot(bg_ckpt, extra_meta))

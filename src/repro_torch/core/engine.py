@@ -411,6 +411,20 @@ def _snapshot_leaves(state: EngineState) -> List[torch.Tensor]:
             for t, is_u32 in _flat_leaves(state)]
 
 
+def restore_state(ckpt, template: EngineState, step: Optional[int] = None
+                  ) -> Tuple[EngineState, int]:
+    """Restore a ``CheckpointManager`` snapshot into an ``EngineState``
+    shaped, typed and placed like ``template`` (u32 lanes come back as
+    their int32 views). Returns ``(state, restored_step)``: the step is
+    the one actually restored, older than asked when a torn member forced
+    the manager's fallback. The one path from a snapshot to engine state,
+    shared by ``restore_from_snapshot`` and the compaction tier."""
+    leaves, step = ckpt.restore(_snapshot_leaves(template), step)
+    return _unflatten(template, [
+        x.view(torch.int32) if x.dtype == torch.uint32 else x
+        for x in leaves]), step
+
+
 def _unflatten(state: EngineState, leaves: List[torch.Tensor]) -> EngineState:
     it = iter(leaves)
 
@@ -558,10 +572,7 @@ class SearchAssistanceEngine:
         the port dispatches every kernel site to its kernel on CUDA.
         """
         eng = cls(cfg, name, device)
-        leaves, step = ckpt.restore(_snapshot_leaves(eng.state), step)
-        eng.state = _unflatten(eng.state, [
-            x.view(torch.int32) if x.dtype == torch.uint32 else x
-            for x in leaves])
+        eng.state, step = restore_state(ckpt, eng.state, step)
         meta = ckpt.manifest(step).get("meta", {})
         return eng, int(meta.get("log_tick", step))
 

@@ -3,10 +3,9 @@
 The PyTorch port of the JAX package's ``streaming/replay.py``. The engine's
 ``ingest_many`` is a loop over ticks here (one ``lax.scan`` dispatch per
 chunk in JAX); each tick runs exactly what a live ``step()`` does, so the
-replayed state is bit for bit the uncrashed engine's. Not ported yet: the
-log compaction tier. A log whose manifest advertises a compaction base is
-refused (``NotImplementedError``), since replaying it without the base
-would be a different result.
+replayed state is bit for bit the uncrashed engine's. Under log
+compaction (``streaming.compaction``) an engine hops onto the newest
+advertised base newer than its own offset before it replays.
 
 Paper §4.2: "since the stores are memory-resident, their contents do not
 survive restarts ... a (re)started instance can rewind to an earlier point
@@ -228,16 +227,31 @@ def _check_snapshot_layout(cfg: EngineConfig, ckpt: CheckpointManager,
 def _maybe_restore_base(engine: SearchAssistanceEngine,
                         reader: FirehoseLogReader,
                         target_tick: Optional[int]) -> Optional[Dict]:
-    """Where the JAX package hops onto a compaction base the log manifest
-    advertises before replaying. The port has no compaction tier yet, and
-    replaying such a log without its base would be a different result, so
-    a log that advertises one is refused. Without bases: None."""
+    """Tiered restore: when the log manifest advertises a compaction base
+    NEWER than the engine's current offset (and ≤ the replay target), jump
+    the engine onto it before replaying. This is what keeps replay-from-
+    zero alive under compaction — the log below the floor may no longer
+    exist on disk — and even when it does, the base is the cheaper
+    legitimate start. A torn newest base transparently falls back to an
+    older retained one (``info['fell_back']``); no usable base at all
+    leaves the engine untouched (the pre-compaction gap rules apply).
+    Returns the base's info plus ``base_tick`` and ``restore_s``, or None."""
     if not reader.bases:
         return None
-    raise NotImplementedError(
-        f"log {reader.name!r} in {reader.dir} advertises compaction bases "
-        f"(ticks {[int(b['tick']) for b in reader.bases]}); log compaction "
-        f"is not ported to repro_torch yet")
+    from .compaction import restore_from_base   # late: compaction imports
+    t0 = time.perf_counter()                    # this module
+    head = reader.last_tick()
+    end = target_tick if target_tick is not None else (
+        head + 1 if head is not None else None)
+    res = restore_from_base(reader.dir, engine.name, engine.state,
+                            max_tick=end)
+    if res is None:
+        return None
+    state, tick, info = res
+    if tick <= int(engine.state.tick):
+        return None         # own snapshot is fresher than any base
+    engine.state = state
+    return dict(info, base_tick=tick, restore_s=time.perf_counter() - t0)
 
 
 def _restore_and_catch_up(cfg: EngineConfig, ckpt: CheckpointManager,
@@ -246,9 +260,11 @@ def _restore_and_catch_up(cfg: EngineConfig, ckpt: CheckpointManager,
                           target_tick: Optional[int],
                           step: Optional[int], device) -> tuple:
     """Restore one engine on ``device`` (fresh when no snapshot exists:
-    a cold engine replays the whole retained log) and replay its tail from
+    cold engines replay the whole retained log, hopping onto the newest
+    compaction base first when one is advertised) and replay its tail from
     the shared, already-validated reader. The stats add ``restore_s`` and
-    ``restore_ms`` (the restore's cost split; empty for a cold engine)."""
+    ``restore_ms`` (the snapshot restore's cost split; empty for a cold
+    engine) and ``base`` (the base hop's info, or None)."""
     t0 = time.perf_counter()
     if step is None and ckpt.latest_step() is None:
         engine, log_tick = SearchAssistanceEngine(cfg, name, device), None
@@ -288,7 +304,10 @@ def recover_engine(cfg: EngineConfig, ckpt: CheckpointManager, log_dir: str,
     walks the snapshot's delta chain; a torn/corrupt chain member falls
     back to the newest intact full snapshot (``stats["restore"]``) and the
     replay tail grows to cover the difference. ``stats["restore_ms"]`` is
-    the restore's cost split.
+    the restore's cost split. Under log compaction, a base newer than the
+    restored snapshot is hopped onto before replay (``stats["base"]``) —
+    mandatory when the log tail below the floor was trimmed, cheaper even
+    when it was not.
     """
     if step is None and ckpt.latest_step() is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt.dir}")

@@ -1,7 +1,9 @@
 """The PyTorch port on a CUDA card: each CUDA kernel against its plain
 version, the engine on the card against the engine on the CPU under both
-cooc layouts, bit-identical state across two runs on the card, and the
-LM's SMOKE models on the card against the CPU.
+cooc layouts, bit-identical state across two runs on the card, overload
+control's fused flushes against per-tick steps on the card, a compaction
+fold on the card against the same fold on the CPU, and the LM's SMOKE
+models on the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips it where there is no
 card (the CPU test run). This file imports neither JAX nor the JAX package,
@@ -714,6 +716,94 @@ def test_engine_on_card_matches_engine_on_cpu(cuda, lazy, layout):
         np.testing.assert_allclose([s for _, s in g.suggestions[f][:3]],
                                    [s for _, s in c.suggestions[f][:3]],
                                    rtol=5e-3, atol=1e-4)
+
+
+def _workload():
+    """A small flash crowd (4x at tick 3) with spam bursts."""
+    from repro_torch.streaming import (FirehoseWorkload, SpamSpec, SpikeSpec,
+                                       WorkloadConfig)
+    return FirehoseWorkload(WorkloadConfig(
+        vocab_per_lang=128, n_users=500, base_queries_per_tick=64,
+        base_tweets_per_tick=8, min_bucket=64, min_tweet_bucket=8,
+        spikes=(SpikeSpec(t_start=3, mult=4.0),),
+        spam=SpamSpec(period=9, burst_ticks=2)), seed=7)
+
+
+@pytest.mark.parametrize("layout", ["hash", "region"])
+def test_overload_flush_on_card_equals_pertick_step_on_card(cuda, layout):
+    """Lag pressure fuses up to 8 ticks into one flush, stepped by the rt
+    engine, the bg engine and a mirror; on the card all three end bit for
+    bit the per-tick service (and the mirror the rt engine), with the
+    layout's kernels launched on the flushes."""
+    from repro_torch.core.background import AssistanceService
+    from repro_torch.streaming import SLOConfig
+    cfg = EngineConfig(**CFG, cooc_layout=layout)
+    wl = _workload()
+    a = AssistanceService(cfg, device=cuda)
+    mirror = SearchAssistanceEngine(cfg, name="rt1", device=cuda)
+    b = AssistanceService(cfg, device=cuda, mirrors=[mirror], slo=SLOConfig(
+        slo_ms=1e9, up_lag=1e9, lag_batch=0.5, batch_max=8))
+    for t in range(17):
+        ev, tw = wl.gen_tick(t)
+        a.step(ev, tw)
+        if t == 4:
+            tk.reset_launches()
+        b.step(ev, tw, lag_hint=4.0 if t >= 4 else 0.0)
+    b.drain()
+    assert b.overload.counters["n_flushes"] < 17
+    assert tk.LAUNCHES["bucket_topk"] > 0, tk.LAUNCHES
+    assert all(tk.LAUNCHES[n] > 0 for n in tk.PATH_KERNELS[layout]
+               if n in ("decay_prune_multi", "chain_find")), tk.LAUNCHES
+    for x, y in ((a.rt, b.rt), (a.bg, b.bg), (b.rt, mirror)):
+        p, q = x.state_arrays(), y.state_arrays()
+        for k in p:
+            assert p[k].tobytes() == q[k].tobytes(), k
+
+
+@pytest.mark.parametrize("layout", ["hash", "region"])
+def test_compaction_fold_on_card_equals_cpu(cuda, layout, tmp_path):
+    """One log, copied: a ``LogCompactor`` on the card and one on the CPU
+    fold it to the same floors; the card's base equals the CPU's leaf for
+    leaf (ints exact, floats within the card-vs-CPU bound of
+    ``test_engine_on_card_matches_engine_on_cpu``), and restores onto the
+    card bit for bit what it saved."""
+    import shutil
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    from repro_torch.streaming import (CompactionConfig, FirehoseLogWriter,
+                                       LogCompactor, restore_from_base)
+    cfg = EngineConfig(**CFG, cooc_layout=layout)
+    w = FirehoseLogWriter(str(tmp_path / "card"), ticks_per_segment=3)
+    stream = SyntheticStream(StreamConfig(**STREAM), seed=11)
+    for t in range(13):
+        w.append(t, *stream.gen_tick(t))
+    w.close()
+    shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+    bases = {}
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        comp = LogCompactor(str(tmp_path / name), {"rt": cfg}, device=dev,
+                            cfg=CompactionConfig(keep_bases=2, chunk_ticks=4))
+        tk.reset_launches()
+        assert [comp.compact(upto_tick=u)["floor"] for u in (6, 12)] == \
+            [6, 12]
+        if name == "card":
+            assert tk.LAUNCHES["decay_prune_multi"] > 0, tk.LAUNCHES
+        ck = CheckpointManager(str(tmp_path / name / "firehose-compact" /
+                                   "rt"))
+        bases[name] = ck.load_arrays(12)[0]
+    for k, x in bases["card"].items():
+        y = bases["cpu"][k]
+        if x.dtype == np.float32:
+            np.testing.assert_allclose(x, y, rtol=2e-3, err_msg=k)
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=k)
+    state, tick, _ = restore_from_base(
+        str(tmp_path / "card"), "rt",
+        SearchAssistanceEngine(cfg, device=cuda).state)
+    eng = SearchAssistanceEngine(cfg, device=cuda)
+    eng.state = state
+    assert tick == 12 and state.tick.device.type == cuda.type
+    for k, x in eng.state_arrays().items():
+        assert x.tobytes() == bases["card"][k].tobytes(), k
 
 
 @pytest.mark.parametrize("layout", ["hash", "region"])

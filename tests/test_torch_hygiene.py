@@ -169,6 +169,31 @@ def _serve_assist_run(tmp_path, **kw):
     return res["bg"].device
 
 
+def _overload_service(tmp_path, **kw):
+    from repro_torch.core.background import AssistanceService
+    from repro_torch.streaming import SLOConfig
+    return AssistanceService(_cfg(), slo=SLOConfig(), **kw).rt.device
+
+
+def _log_compactor(tmp_path, **kw):
+    from repro_torch.streaming import LogCompactor
+    return LogCompactor(str(tmp_path / "log"), {"rt": _cfg()}, **kw).device
+
+
+def _serve_assist_firehose_run(tmp_path, **kw):
+    from repro_torch.data.stream import StreamConfig
+    from repro_torch.launch import serve_assist
+    res = serve_assist.run(
+        _cfg(), StreamConfig(),
+        serve_assist.AssistOptions(ticks=1, out=str(tmp_path), replicas=2,
+                                   fail_replica_at=-1, crash_at=-1,
+                                   recover=False, full_every=4,
+                                   slow_io_ms=0.0, slo_ms=50.0,
+                                   workload="firehose", compact_every=1),
+        log=lambda s: None, **kw)
+    return res["compactor"].device
+
+
 def _serve_assist_main(tmp_path, device=None):
     from repro_torch.launch import serve_assist
     argv = ["--ticks", "1", "--replicas", "1", "--out", str(tmp_path)]
@@ -178,7 +203,9 @@ def _serve_assist_main(tmp_path, device=None):
 
 
 @pytest.mark.parametrize("entry", [_assistance_service, _recover_service,
-                                   _serve_assist_run, _serve_assist_main],
+                                   _serve_assist_run, _serve_assist_main,
+                                   _overload_service, _log_compactor,
+                                   _serve_assist_firehose_run],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_serving_entry_points_default_to_cuda_and_refuse_without_it(
         monkeypatch, tmp_path, entry):

@@ -13,7 +13,8 @@ full). Beyond the JAX tests: a CPU save/mutate/save cycle showing the
 delta shadow owns its bytes (the port's stores mutate in place and
 ``.numpy()`` of a CPU tensor aliases it), the refusal of leaves npz
 cannot store (bfloat16) and of raw-viewed snapshots, and the refusal of a
-log that advertises a compaction base.
+log whose advertised compaction base is gone along with the segments
+below it.
 
 Imports torch and ``repro_torch`` only.
 """
@@ -465,8 +466,11 @@ def test_replay_intra_segment_hole(tmp_path):
 
 
 def test_replay_refuses_a_log_with_compaction_bases(tmp_path):
-    """Log compaction is not ported: a log advertising a base is refused,
-    not replayed without it."""
+    """A log that advertises a compaction base whose snapshot is gone, and
+    whose segments below the base were trimmed, is refused (the snapshot
+    predates the log's retention): replay hops onto a base only where one
+    restores, and never replays across the trimmed hole. The JAX package
+    does the same."""
     cfg = _cfg(rank_every=0)
     ckpt = CheckpointManager(str(tmp_path / "ck"))
     _engine(cfg).save_snapshot(ckpt)
@@ -478,9 +482,11 @@ def test_replay_refuses_a_log_with_compaction_bases(tmp_path):
     with open(man) as f:
         doc = json.load(f)
     doc["bases"] = [{"tick": 2, "epoch": 0, "engines": {"rt": 2}}]
+    trimmed = doc["segments"].pop(0)          # ticks 0-1, below the base
     with open(man, "w") as f:
         json.dump(doc, f)
-    with pytest.raises(NotImplementedError, match="compaction"):
+    os.unlink(os.path.join(logd, trimmed["file"]))
+    with pytest.raises(ValueError, match="predates log retention"):
         _recover(cfg, ckpt, logd)
 
 

@@ -8,10 +8,11 @@ package's ``tests/test_recovery.py`` cases, held against the uninterrupted
 port run); the ``serve_assist`` loop crashed mid-segment and at a sealed
 segment, then resumed with ``--recover``, ends equal to the uninterrupted
 run (engine states, state snapshots, persisted suggestion and spelling
-tables), and its CLI runs on the CPU and refuses the flags whose modules
-are not ported. Followers made after a recovery own their state: the
-port's stores write in place, so replicas that shared one state would
-diverge (shown here too).
+tables), and its CLI runs on the CPU, takes the overload, workload and
+compaction flags, and refuses the flags whose modules are not ported.
+Followers made after a recovery own their state: the port's stores
+write in place, so replicas that shared one state would diverge (shown
+here too).
 
 Imports torch and ``repro_torch`` only.
 """
@@ -370,19 +371,35 @@ def test_serve_assist_main_runs_on_the_cpu(tmp_path, capsys):
     (["--kill-leader-at", "7"], "item 12"),
     (["--kill-follower-at", "7"], "item 12"),
     (["--autotune"], "item 11"),
-    (["--slo-ms", "60"], "item 10"),
-    (["--tick-ms", "30"], "item 10"),
-    (["--workload", "firehose"], "item 10"),
-    (["--spike-at", "10"], "item 10"),
-    (["--spike-mult", "5"], "item 10"),
-    (["--compact-every", "8"], "item 8c"),
-    (["--keep-bases", "3"], "item 8c"),
 ], ids=lambda x: x[0] if isinstance(x, list) else None)
 def test_serve_assist_refuses_unported_flags(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):
         serve_assist.main(["--device", "cpu", "--out", str(tmp_path)]
                           + argv)
     assert not os.path.exists(tmp_path / "log")     # refused before any work
+
+
+@pytest.mark.parametrize("argv", [
+    ["--slo-ms", "60"], ["--tick-ms", "30"], ["--workload", "firehose"],
+    ["--spike-at", "10"], ["--spike-mult", "5"], ["--compact-every", "1"],
+    ["--keep-bases", "3"]], ids=lambda x: x[0])
+def test_serve_assist_accepts_the_ported_flags(tmp_path, capsys, argv):
+    """The overload, workload and compaction flags run (two ticks of the
+    JAX launcher's settings on the CPU)."""
+    assert serve_assist.main(["--device", "cpu", "--ticks", "2",
+                              "--replicas", "1", "--out", str(tmp_path)]
+                             + argv) == 0
+    out = capsys.readouterr().out
+    assert "final suggestions for head query" in out
+    r = FirehoseLogReader(str(tmp_path / "log"))
+    if argv[0] == "--compact-every":
+        # folded into a base at tick 1: every segment lies below the floor
+        assert "[t=1] compacted: floor=2" in out
+        assert (r.floor_tick(), r.last_tick()) == (2, None)
+    else:
+        assert (r.floor_tick(), r.last_tick()) == (None, 1)
+    if argv[0] == "--slo-ms":
+        assert "[done] overload stats" in out
 
 
 def test_serve_assist_has_no_use_kernel_flag(capsys):
