@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile-region-only [--root DIR]
     python3 chip_smoke.py --profile-hash-only [--root DIR]
+    python3 chip_smoke.py --flash-crowd-only
+    python3 chip_smoke.py --tune-only
 
 Phases, each of which must pass:
 
@@ -170,7 +172,24 @@ Phases, each of which must pass:
      period, the frontends' lags, peak device memory and the phase's
      launches (``decay_prune_multi``, ``score_gate`` and ``bucket_topk``
      must launch); then ``score_gate`` and ``bucket_topk`` held against
-     their plain versions on the inputs of the phase's last rank cycle.
+     their plain versions on the inputs of the phase's last rank cycle;
+ 10. tuning and the oracle at deployment scale — ``launch/autotune.tune``
+     for the hash and the region cell into a fresh cache directory (the
+     shape class; each op's kernel and twin µs; each kernel's roofline
+     fraction under the JAX tuner's traffic model at the
+     ``launch/mesh`` peaks; the plan): every op of the layout must say
+     "kernel" and launch its kernel (counts set to 0 before and read
+     after); a second ``tune`` must hit the cache with no launch and the
+     same plan; then the port's ``ReferenceEngine`` (its LLR term in the
+     engine's float32) over phase 4's 17 hash ticks against the hash
+     engine on the card under the parity contract
+     (``core/reference.parity_report``: keys exact, weights and counts,
+     top-3 agreement and scores at rtol 5e-3, atol 1e-4; the sources the
+     ranking caps counted; the reference's wall time); the region cell is
+     not compared (it drops pair updates at this scale); last
+     ``serve_assist --autotune`` for 13 ticks on the card, whose
+     frontend's ``metrics()["tuned_variants"]`` must equal the printed
+     plan.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -186,7 +205,8 @@ each engine kernel's summed device time, ``chain_find`` and
 hash cell (``score_gate`` and ``bucket_topk`` in its rank cycle), then
 times ``score_gate``'s and ``assoc_score``'s bare launches on the
 synthetic lanes and on the lanes its last rank cycle gave ``score_gate``.
-``--flash-crowd-only`` builds the kernels and runs phase 9 alone.
+``--flash-crowd-only`` builds the kernels and runs phase 9 alone;
+``--tune-only`` builds them and runs phase 10 alone.
 ``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
 DIR lies inside this checkout (a parent commit unpacked with ``git
 archive`` under ``build/``), so one call on one card profiles two trees.
@@ -203,9 +223,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12          # H100 SXM f32, outside the tensor cores
-BF16_TC_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# The card's peaks (HBM bytes/s, f32 CUDA-core and dense bf16 tensor-core
+# operations/s): ``repro_torch.launch.mesh``, read once the package is on
+# the path (:func:`bind_peaks`).
+HBM_BYTES_PER_S = F32_OPS_PER_S = BF16_TC_OPS_PER_S = None
 # Exponentials: 16 a clock per SM (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0) x 132 SMs x the 1.98 GHz
 # maximum boost clock (data sheet).
@@ -218,6 +239,14 @@ SLEEP_CYCLES = 2_000_000
 
 def log(*a):
     print(*a, flush=True)
+
+
+def bind_peaks() -> None:
+    global HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_TC_OPS_PER_S
+    from repro_torch.launch import mesh
+    HBM_BYTES_PER_S = mesh.HBM_BW
+    F32_OPS_PER_S = mesh.PEAK_FLOPS_F32
+    BF16_TC_OPS_PER_S = mesh.PEAK_FLOPS_BF16
 
 
 def card_line() -> str:
@@ -3068,6 +3097,238 @@ def run_flash_crowd(dev, card: str, floor):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: tuning and the oracle at deployment scale.
+# ---------------------------------------------------------------------------
+
+TUNE_TICKS = 17               # phase 4's stream: 4 sweeps, 2 rank cycles
+ASSIST_TICKS = 13             # serve_assist --autotune: one rank cycle (12)
+
+
+def tune_cell(dev, layout, cache):
+    """(a), (b): ``autotune.tune`` for a deployment cell into ``cache``
+    (fresh): the shape class, each op's kernel and twin µs, each kernel's
+    roofline fraction under the JAX tuner's traffic model at the
+    ``launch/mesh`` peaks, and the plan; every op of the layout must say
+    "kernel" and launch its kernel. Then a second tune must hit the cache:
+    the same plan, no launch. Returns (plan, launches of the first
+    tune)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.plan import LAYOUT_OPS, OP_KERNELS
+    from repro_torch.launch import autotune
+    from repro_torch.launch.roofline import hot_path_roofline
+    cfg, _ = deployment_config(layout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    plan = autotune.tune(cfg, device=dev, cache=cache)
+    wall = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    rec = json.loads(autotune.cache_path(cfg, dev, cache).read_text())
+    tim = rec["timings_us"]
+    traffic = autotune.hot_path_traffic(cfg)
+    ops = LAYOUT_OPS[layout]
+    log(f"[10] tune {layout}: shape class {rec['shape_class']}; "
+        f"{wall:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB; launches {launches}")
+    for op in ops:
+        k, j = tim[f"{op}:kernel"], tim[f"{op}:jnp"]
+        row = hot_path_roofline(op, bytes_touched=traffic[op]["bytes"],
+                                flops=traffic[op]["flops"], measured_us=k)
+        ceil_ms = max(row["t_memory_s"], row["t_compute_s"]) * 1e3
+        log(f"  {layout} {op}: kernel {k!r} us, twin {j!r} us (twin / "
+            f"kernel {j / k:.2f}); JAX model {traffic[op]['bytes']!r} B, "
+            f"{traffic[op]['flops']!r} flops: ceiling {ceil_ms!r} ms "
+            f"({row['bottleneck']}), roofline fraction "
+            f"{row['roofline_fraction']!r}")
+    log(f"  {layout} plan: {plan.to_json()}; twin faster than kernel: "
+        f"{rec['twin_faster']}")
+    bad = [op for op in ops if getattr(plan, op) != "kernel"]
+    missing = [op for op in ops if launches[OP_KERNELS[op]] <= 0]
+    if bad or missing:
+        raise AssertionError(f"{layout} tuning: ops not 'kernel' {bad}, "
+                             f"kernels not launched {missing}")
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    again = autotune.tune(cfg, device=dev, cache=cache)
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    if again != plan or any(tk.LAUNCHES.values()):
+        raise AssertionError(f"{layout} second tune: {again} with launches "
+                             f"{tk.LAUNCHES}")
+    log(f"  {layout} second tune: a cache hit in {hit_ms:.3f} ms, the same "
+        f"plan, 0 launches")
+    return plan, launches
+
+
+def reference_against_card(dev, ticks) -> dict:
+    """(c): the hash cell's ticks on the card, and the port's
+    ``ReferenceEngine`` over the same ticks, its LLR term in the engine's
+    float32 with the card's float32 log, held against the card's engine
+    under the parity contract; the sources the ranking caps are counted
+    and printed. Then, printed only, the same state ranked with correctly
+    rounded logs and with the float64 LLR. Returns the launches of the
+    card's run."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.engine import SearchAssistanceEngine
+    from repro_torch.core.reference import (ReferenceEngine, log_rounded,
+                                            parity_report)
+    cfg, _ = deployment_config("hash")
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    eng = SearchAssistanceEngine(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ev, tw in ticks:
+        eng.step(ev, tw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(ticks)
+    launches = dict(tk.LAUNCHES)
+    log(f"[10] hash engine on the card, {len(ticks)} ticks: {ms:.3f} ms a "
+        f"tick; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"launches {launches}")
+    def card_log(v):           # the card's float32 log, the engine's libm
+        return torch.log(torch.from_numpy(v).to(dev)).cpu().numpy()
+
+    ref = ReferenceEngine(cfg, llr_f32=True, log_f32=card_log)
+    tick_s = []
+    for ev, tw in ticks:
+        t0 = time.perf_counter()
+        ref.step(ev, tw)
+        tick_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rep = parity_report(eng, ref)
+    cmp_s = time.perf_counter() - t0
+    log(f"[10] reference over the hash cell's {len(ticks)} ticks: wall "
+        f"{sum(tick_s):.3f} s (per tick {[round(x, 3) for x in tick_s]}); "
+        f"report {cmp_s:.3f} s")
+    for part in ("qstore", "cooc", "sessions", "drops", "suggestions"):
+        log(f"  reference vs card, {part}: {json.dumps(rep[part])}")
+    sg = rep["suggestions"]
+    log(f"  keys exact: qstore {rep['qstore']['only_engine']} + "
+        f"{rep['qstore']['only_reference']}, cooc "
+        f"{rep['cooc']['only_engine']} + {rep['cooc']['only_reference']} "
+        f"keys on one side only ({rep['qstore']['flips']} + "
+        f"{rep['cooc']['flips']} prune-threshold flips); weights within "
+        f"2e-3 (max rel {rep['qstore']['weight_max_rel']!r}, "
+        f"{rep['cooc']['weight_max_rel']!r}), counts within 1e-5; top-3 "
+        f"agreement {sg['agree_share']!r} of {sg['compared']} sources "
+        f"(at least 0.95); top-3 scores outside rtol 5e-3, atol 1e-4 "
+        f"(reference LLR {sg['reference_llr']}): {sg['score_out']} sources "
+        f"(max |diff| {sg['score_max_abs_diff']!r}); capped by bucket_rows "
+        f"{sg['capped']['bucket_rows']} ({sg['capped_disagree']} of them "
+        f"disagree), by source_cap {sg['capped']['source_cap']}, by the "
+        f"arena {sg['capped']['arena']}")
+    # what the card's logs and the float32 LLR take out: the same state
+    # (after tick 16's sweep) ranked again (printed, not held)
+    for f32, lg in ((True, log_rounded), (False, log_rounded)):
+        ref.llr_f32, ref.log_f32 = f32, lg
+        ref.rank_cycle()
+        other = parity_report(eng, ref)["suggestions"]
+        log(f"  against the reference with LLR {other['reference_llr']} "
+            f"instead: top-3 agreement {other['agree_share']!r}; "
+            f"{other['score_out']} sources outside rtol 5e-3, atol 1e-4 "
+            f"(max |diff| {other['score_max_abs_diff']!r})")
+    log("  region cell not held against the reference: it drops pair "
+        "updates at this scale (phase 4), which the reference keeps")
+    if not rep["ok"]:
+        raise AssertionError(f"reference vs card: {rep['faults']}")
+    return launches
+
+
+def assist_autotune(dev, cache) -> dict:
+    """(d): ``python -m repro_torch.launch.serve_assist --autotune`` for
+    a few ticks on the card (in process, its cache in ``cache``): the
+    frontend's ``metrics()["tuned_variants"]`` must equal the printed
+    plan. Returns the launches of the run."""
+    import ast
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from repro_torch import kernels as tk
+    from repro_torch.launch import autotune, serve_assist
+    from repro_torch.serving.serve import SuggestFrontend
+    out = io.StringIO()
+    env = os.environ.get(autotune.CACHE_ENV)
+    os.environ[autotune.CACHE_ENV] = cache
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_assist_") as tmp, \
+                contextlib.redirect_stdout(out):
+            serve_assist.main(["--ticks", str(ASSIST_TICKS), "--autotune",
+                               "--out", tmp])
+            fe = SuggestFrontend(os.path.join(tmp, "rt"))
+            fe.poll()
+            metrics = fe.metrics()
+    finally:
+        if env is None:
+            os.environ.pop(autotune.CACHE_ENV)
+        else:
+            os.environ[autotune.CACHE_ENV] = env
+    wall = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    line = next(x for x in lines if x.startswith("[assist] tuned plan: "))
+    printed = ast.literal_eval(line.split(": ", 1)[1])
+    log(f"[10] serve_assist --autotune, {ASSIST_TICKS} ticks on the card: "
+        f"{wall:.1f} s; {line}; metrics()['tuned_variants'] "
+        f"{metrics['tuned_variants']}; rt_tick {metrics['rt_tick']}; "
+        f"launches {launches}")
+    for x in lines:
+        if x.startswith("[t=12]"):
+            log(f"  {x}")
+    if metrics["tuned_variants"] != printed or \
+            {printed[op] for op in ("score_gate", "bucket_topk",
+                                    "decay_prune")} != {"kernel"}:
+        raise AssertionError(f"serve_assist --autotune: printed {printed}, "
+                             f"metrics {metrics['tuned_variants']}")
+    return launches
+
+
+def run_tuning(dev, card: str, ticks=None) -> dict:
+    """Phase 10: (a), (b) tune both deployment cells into a fresh cache;
+    (c) the reference against the card's hash engine over the cell's 17
+    ticks; (d) serve_assist --autotune. ``ticks``: phase 4's stream, or
+    made here. Returns the phase's launch counts."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.data.stream import SyntheticStream
+    t_phase = time.perf_counter()
+    if ticks is None:
+        _, scfg = deployment_config()
+        stream = SyntheticStream(scfg, seed=SEED)
+        ticks = [stream.gen_tick(t) for t in range(TUNE_TICKS)]
+        log(f"[10] stream: {TUNE_TICKS} ticks generated in "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    total = {n: 0 for n in tk.KERNELS}
+
+    def add(launches):
+        for n, v in launches.items():
+            total[n] += v
+
+    log(f"[10] tuning and the oracle ({card})")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as cache:
+        for layout in ("hash", "region"):
+            add(tune_cell(dev, layout, cache)[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  after tuning: {torch.cuda.memory_allocated() / 2**30:.3f} "
+            f"GiB held")
+        add(reference_against_card(dev, ticks))
+        gc.collect()
+        torch.cuda.empty_cache()
+        add(assist_autotune(dev, cache))
+    log(f"  tuning launches: {total}")
+    log(f"  tuning phase took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def profile_region() -> None:
     """The region cell's 17 ticks, then one more ingest tick and one rank
     cycle under the profiler, on the ``repro_torch`` package on the path."""
@@ -3141,6 +3402,9 @@ def main() -> int:
     ap.add_argument("--flash-crowd-only", action="store_true",
                     help="build the kernels and run phase 9 (the flash "
                          "crowd), and nothing else")
+    ap.add_argument("--tune-only", action="store_true",
+                    help="build the kernels and run phase 10 (tuning and "
+                         "the oracle), and nothing else")
     ap.add_argument("--root", default=str(ROOT),
                     help="with --profile-region-only or --profile-hash-only:"
                          " a directory inside this checkout whose "
@@ -3170,16 +3434,20 @@ def main() -> int:
         return 0
     from repro_torch import kernels as tk
     from repro_torch.kernels import build
+    bind_peaks()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     t_start = time.perf_counter()
-    if args.flash_crowd_only:
+    if args.flash_crowd_only or args.tune_only:
         log(f"[1] card: {card} | torch {torch.__version__} cuda "
             f"{torch.version.cuda}")
         for stem in build.build_all():
             build.load(stem)
-        run_flash_crowd(dev, card, score_floor())
+        if args.flash_crowd_only:
+            run_flash_crowd(dev, card, score_floor())
+        if args.tune_only:
+            run_tuning(dev, card)
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3325,6 +3593,10 @@ def main() -> int:
 
     # ---- 9. a flash crowd, overload control and log compaction ----
     launches["flash_crowd"] = run_flash_crowd(dev, card, floor)
+    torch.cuda.empty_cache()
+
+    # ---- 10. tuning and the oracle ----
+    launches["tuning"] = run_tuning(dev, card, ticks)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

@@ -16,6 +16,7 @@ computes them in jnp, outside any Pallas kernel, and so do these in torch.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -47,6 +48,16 @@ class DecayConfig:
             return torch.clamp_min(1.0 - self.linear_slope * dt, 0.0)
         if self.kind == STEP:
             return self.step_factor ** torch.floor(dt / self.step_every)
+        raise ValueError(self.kind)
+
+    def factor_py(self, dticks: float) -> float:
+        """The decay factor as a host float (the reference engine's)."""
+        if self.kind == EXP:
+            return 2.0 ** (-dticks / self.half_life_ticks)
+        if self.kind == LINEAR:
+            return max(1.0 - self.linear_slope * dticks, 0.0)
+        if self.kind == STEP:
+            return self.step_factor ** math.floor(dticks / self.step_every)
         raise ValueError(self.kind)
 
 

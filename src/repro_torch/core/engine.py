@@ -11,9 +11,11 @@ Differences from the JAX engine, all deliberate:
     is a Python loop over ticks instead of a ``lax.scan``;
   * on CUDA every kernel site (the decay sweep, the score/gate pass, the
     per-bucket top-k, and under the region layout the chain find and the
-    fused region pass) always runs its hand-written kernel, so
-    ``EngineConfig`` has no ``use_kernel``/``plan`` (the autotuning slice
-    brings ``plan``).
+    fused region pass) always runs its hand-written kernel, and on the CPU
+    its plain twin, so ``EngineConfig`` has no ``use_kernel`` and no
+    ``plan``: a tuned plan routes nothing here, and ``ingest_queries`` runs
+    once a quantum slice. ``launch/autotune``'s plan is provenance, which
+    ``serve_assist --autotune`` writes into persisted meta.
 
 ``state_arrays()``/``load_state_arrays()`` produce and accept exactly the
 JAX engine's dict (``leaf_0 .. leaf_25`` under the hash layout,
@@ -544,7 +546,9 @@ class SearchAssistanceEngine:
         the last maintenance stats. Whether the manager writes a full or a
         delta against the previous snapshot is its decision
         (``CheckpointManager.full_interval``). The port has no
-        ``EngineConfig.plan``, so it writes no ``plan`` key.
+        ``EngineConfig.plan``; a caller that holds a tuned plan passes it
+        as ``extra_meta={"plan": plan.to_json()}``, the key a JAX restore
+        adopts.
         """
         tick = int(self.state.tick)
         meta = {"log_tick": tick, "engine": self.name,

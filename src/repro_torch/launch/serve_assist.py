@@ -37,6 +37,11 @@ simulated arrivals so falling behind real time shows up as lag, and
 With ``--compact-every N`` the leader folds the sealed log into base
 snapshots every N ticks (``streaming/compaction.py``): on-disk log bytes
 stay bounded while replay-from-zero survives via the newest base.
+``--autotune`` tunes first (``launch/autotune.py``: each hot path's kernel
+and twin timed, cached per device and shape class), prints the plan's
+variants and writes the plan into the persisted tables' meta, where the
+frontends' ``metrics()["tuned_variants"]`` report it. The plan routes
+nothing: the engine runs the same with or without it.
 
   python -m repro_torch.launch.serve_assist --ticks 120 --out /tmp/assist
   python -m repro_torch.launch.serve_assist --ticks 120 --out /tmp/assist --recover
@@ -45,6 +50,8 @@ stay bounded while replay-from-zero survives via the newest base.
   python -m repro_torch.launch.serve_assist --ticks 120 --out /tmp/assist \\
       --slo-ms 80 --workload firehose --spike-mult 50 --tick-ms 40 \\
       --compact-every 16
+  python -m repro_torch.launch.serve_assist --ticks 24 --out /tmp/assist_at \\
+      --autotune
 
 Port of the JAX package's ``launch/serve_assist.py``, its single-stack
 path. The loop is :func:`run` (engine config, base stream config,
@@ -52,10 +59,9 @@ path. The loop is :func:`run` (engine config, base stream config,
 file's own settings. Engines run on CUDA unless ``--device`` names
 another device. Flags of modules not ported yet raise
 ``NotImplementedError`` naming their ROADMAP item: ``--fleet``,
-``--kill-leader-at`` and ``--kill-follower-at`` (the fleet, item 12) and
-``--autotune`` (item 11). ``--use-kernel`` is not carried over: on CUDA
-every hot path runs its kernel, and the port's ``SpellConfig`` has no
-``use_kernel`` field.
+``--kill-leader-at`` and ``--kill-follower-at`` (the fleet, item 12).
+``--use-kernel`` is not carried over: on CUDA every hot path runs its
+kernel, and the port's ``SpellConfig`` has no ``use_kernel`` field.
 
 After ``--recover`` the follower replicas take copies of the recovered
 leader's state (JAX shares one immutable state between them): the port's
@@ -68,7 +74,7 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -77,6 +83,7 @@ from ..core import stores
 from ..core.background import AssistanceService, background_config
 from ..core.engine import EngineConfig, SearchAssistanceEngine, clone_state
 from ..core.hashing import join_fp
+from ..core.plan import TunedPlan
 from ..core.spelling import SpellConfig, spelling_cycle
 from ..data.stream import StreamConfig, SyntheticStream, steve_jobs_scenario
 from ..distributed.fault_tolerance import CheckpointManager, ReplicaGroup
@@ -113,6 +120,9 @@ class AssistOptions:
     spike_mult: float = 50.0      # firehose: its peak volume multiplier
     compact_every: int = 0  # fold the log into bases every N ticks (0: off)
     keep_bases: int = 2     # compaction fallback depth
+    # the tuner's plan (--autotune), written into the persisted tables'
+    # meta; it routes nothing (``core/plan.py``)
+    plan: Optional[TunedPlan] = None
 
 
 def default_configs():
@@ -304,6 +314,8 @@ def run(ecfg: EngineConfig, stream_cfg: StreamConfig, opts: AssistOptions,
         # the leader snapshots BOTH engine states (delta-chained) so a
         # crashed stack restores rt AND bg
         save = {"t": t, "heartbeat": heartbeat}
+        if opts.plan is not None:   # the plan rides the snapshots, as in JAX
+            extra_meta = {**(extra_meta or {}), "plan": opts.plan.to_json()}
         for label, e, ck in (("rt", rt_eng, state_rt_ckpt),
                              ("bg", bg_engine, state_bg_ckpt)):
             s0 = time.perf_counter()
@@ -371,6 +383,8 @@ def run(ecfg: EngineConfig, stream_cfg: StreamConfig, opts: AssistOptions,
                 done = int(svc.rt.state.tick) - 1   # stats watermark
                 stats = svc.overload.stats_snapshot()
                 meta = {"layout": svc.rt.cfg.cooc_layout, "overload": stats}
+                if opts.plan is not None:   # tuned variants -> metrics
+                    meta["plan"] = opts.plan.to_json()
                 if ranked:
                     meta["tick"] = done             # last reflected tick
                 elif svc.rt.last_rank_tick >= 0:
@@ -411,6 +425,8 @@ def run(ecfg: EngineConfig, stream_cfg: StreamConfig, opts: AssistOptions,
                 meta = {"tick": t, "layout": eng.cfg.cooc_layout}
                 if eng.last_maintenance:  # freelist pressure -> frontends
                     meta["maintenance"] = eng.last_maintenance
+                if opts.plan is not None:   # tuned variants -> metrics
+                    meta["plan"] = opts.plan.to_json()
                 if not rt_group.persist(rid, t,
                                         pack_suggestions(eng.suggestions),
                                         meta):
@@ -520,7 +536,6 @@ _UNPORTED = (
      "ROADMAP Queue 1 item 12 (distributed/fleet.py)"),
     ("kill_follower_at", "--kill-follower-at",
      "ROADMAP Queue 1 item 12 (distributed/fleet.py)"),
-    ("autotune", "--autotune", "ROADMAP Queue 1 item 11 (launch/autotune.py)"),
 )
 
 
@@ -564,6 +579,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--keep-bases", type=int, default=2,
                     help="compaction fallback depth: old bases (and their "
                          "log tail) retained after each floor swap")
+    ap.add_argument("--autotune", action="store_true",
+                    help="time the hot paths' kernels and twins at startup "
+                         "(cached per device and shape class) and report "
+                         "the plan in the frontends' metrics")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda)")
     not_ported = "not ported yet: raises NotImplementedError"
@@ -571,7 +590,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kill-leader-at", type=int, default=-1, help=not_ported)
     ap.add_argument("--kill-follower-at", type=int, default=-1,
                     help=not_ported)
-    ap.add_argument("--autotune", action="store_true", help=not_ported)
     return ap
 
 
@@ -583,6 +601,11 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"{flag} is not ported to repro_torch yet: it needs {needs}")
     ecfg, scfg = default_configs()
+    plan = None
+    if args.autotune:
+        from .autotune import tune
+        plan = tune(ecfg, device=args.device)
+        print("[assist] tuned plan:", plan.variants(), flush=True)
     opts = AssistOptions(ticks=args.ticks, out=args.out,
                          replicas=args.replicas,
                          fail_replica_at=args.fail_replica_at,
@@ -592,7 +615,7 @@ def main(argv=None) -> int:
                          tick_ms=args.tick_ms, workload=args.workload,
                          spike_at=args.spike_at, spike_mult=args.spike_mult,
                          compact_every=args.compact_every,
-                         keep_bases=args.keep_bases)
+                         keep_bases=args.keep_bases, plan=plan)
     run(ecfg, scfg, opts, args.device)
     return 0
 

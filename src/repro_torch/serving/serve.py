@@ -40,7 +40,7 @@ import numpy as np
 
 from ..core.background import interpolate
 from ..core.hashing import fingerprint
-from ..core.plan import tuned_variants
+from ..core.plan import TunedPlan
 from ..data.tokenizer import NGramTokenizer
 from ..distributed.fault_tolerance import CheckpointManager
 from ..streaming.log import FirehoseLogReader
@@ -203,16 +203,14 @@ class SuggestFrontend:
             "store_layout": meta.get("layout"),
             "store": meta.get("maintenance"),
         }
-        # tuned kernel-dispatch plan (the JAX package's launch.autotune):
-        # which variant each hot path runs on the backend. Rides a JAX
-        # snapshot's meta; the port writes none (on CUDA every hot path
-        # runs its kernel), so ``None`` for a port backend.
+        # the backend's tuned plan (``launch/autotune``): which variant each
+        # hot path runs and the tuning knobs; None for an untuned backend.
         plan = meta.get("plan")
         out["tuned_plan"] = plan
         out["tuned_variants"] = None
         if plan:
             try:
-                out["tuned_variants"] = tuned_variants(plan)
+                out["tuned_variants"] = TunedPlan.from_json(plan).variants()
             except (TypeError, ValueError):
                 pass                        # unknown future plan schema
         # backend overload state (streaming.overload): the controller's

@@ -2,8 +2,9 @@
 version, the engine on the card against the engine on the CPU under both
 cooc layouts, bit-identical state across two runs on the card, overload
 control's fused flushes against per-tick steps on the card, a compaction
-fold on the card against the same fold on the CPU, and the LM's SMOKE
-models on the card against the CPU.
+fold on the card against the same fold on the CPU, the LM's SMOKE
+models on the card against the CPU, the autotuner on the card, and the
+engine on the card against the port's reference engine.
 
 Every test takes the ``cuda`` fixture, which skips it where there is no
 card (the CPU test run). This file imports neither JAX nor the JAX package,
@@ -933,3 +934,72 @@ def test_lm_smoke_on_card_matches_cpu(cuda, arch):
         cl, caches["cpu"] = tr.decode_step(cpu, nxt, cfg, caches["cpu"])
     torch.testing.assert_close(gl.cpu(), cl, **tol)
     assert tk.LAUNCHES["flash_attention"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The tuner and the plan on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["hash", "region"])
+def test_tuner_on_card_writes_kernel_for_every_op(cuda, layout, tmp_path):
+    import json
+    from repro_torch.core.plan import LAYOUT_OPS, OP_KERNELS
+    from repro_torch.launch import autotune
+    cfg = EngineConfig(**CFG, cooc_layout=layout, ingest_quantum=64)
+    tk.reset_launches()
+    plan = autotune.tune(cfg, device=cuda, cache=str(tmp_path), repeats=1)
+    ops = LAYOUT_OPS[layout]
+    assert all(getattr(plan, op) == "kernel" for op in ops), plan
+    assert all(tk.LAUNCHES[OP_KERNELS[op]] > 0 for op in ops), tk.LAUNCHES
+    assert plan.backend == "cuda" and plan.ingest_chunk == 0
+    rec = json.loads(autotune.cache_path(cfg, cuda, str(tmp_path))
+                     .read_text())
+    for op in ops:
+        assert rec["timings_us"][f"{op}:kernel"] > 0
+        assert rec["timings_us"][f"{op}:jnp"] > 0
+    tk.reset_launches()
+    assert autotune.tune(cfg, device=cuda, cache=str(tmp_path)) == plan
+    assert sum(tk.LAUNCHES.values()) == 0           # a cache hit
+
+
+@pytest.mark.parametrize("layout", ["hash", "region"])
+def test_a_kernel_that_raises_makes_the_tuner_raise(cuda, layout,
+                                                    monkeypatch):
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import autotune
+
+    def boom(*a, **k):
+        raise RuntimeError("kernel refused")
+
+    for name in ("score_gate", "bucket_topk", "region_rank", "chain_find",
+                 "decay_prune_table"):
+        monkeypatch.setattr(kops, name, boom)
+    with pytest.raises(RuntimeError, match="kernel refused"):
+        autotune.measure_plan(EngineConfig(**CFG, cooc_layout=layout),
+                              device=cuda, repeats=1)
+
+
+@pytest.mark.parametrize("logs", ["rounded", "card"])
+@pytest.mark.parametrize("layout", ["hash", "region"])
+def test_card_engine_holds_the_contract_against_the_reference(cuda, layout,
+                                                              logs):
+    """The engine on the card against the port's reference engine (its
+    LLR in the engine's float32, with correctly rounded logs or the
+    card's) under the parity contract."""
+    from repro_torch.core.reference import ReferenceEngine, parity_report
+    kw = dict(cooc_layout=layout)
+    if layout == "region":      # ample regions: no chain-full drops
+        kw.update(cooc_capacity=1 << 16, region_width=64)
+    cfg = EngineConfig(**{**CFG, **kw})
+    eng = SearchAssistanceEngine(cfg, device=cuda)
+    card_log = (lambda v: torch.log(torch.from_numpy(v).to(cuda))
+                .cpu().numpy()) if logs == "card" else None
+    ref = ReferenceEngine(cfg, llr_f32=True, log_f32=card_log)
+    stream = SyntheticStream(StreamConfig(**STREAM), seed=11)
+    for t in range(17):
+        ev, tw = stream.gen_tick(t)
+        eng.step(ev, tw)
+        ref.step(ev, tw)
+    rep = parity_report(eng, ref)
+    assert rep["ok"], rep["faults"]
+    assert rep["suggestions"]["compared"] > 0

@@ -370,7 +370,6 @@ def test_serve_assist_main_runs_on_the_cpu(tmp_path, capsys):
     (["--fleet", "3"], "item 12"),
     (["--kill-leader-at", "7"], "item 12"),
     (["--kill-follower-at", "7"], "item 12"),
-    (["--autotune"], "item 11"),
 ], ids=lambda x: x[0] if isinstance(x, list) else None)
 def test_serve_assist_refuses_unported_flags(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):
