@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile-hash-only [--root DIR]
     python3 chip_smoke.py --flash-crowd-only
     python3 chip_smoke.py --tune-only
+    python3 chip_smoke.py --fleet-only
 
 Phases, each of which must pass:
 
@@ -189,7 +190,33 @@ Phases, each of which must pass:
      not compared (it drops pair updates at this scale); last
      ``serve_assist --autotune`` for 13 ticks on the card, whose
      frontend's ``metrics()["tuned_variants"]`` must equal the printed
-     plan.
+     plan;
+ 11. the self-healing replicated fleet at deployment scale — (a) a
+     ``ServingFleet`` of 3 replicas on the hash configuration under the
+     firehose workload (a 50x spike from tick 4, spam bursts, seed 0),
+     against an uninterrupted ``AssistanceService`` stepping the same
+     ticks: replica 2 answers through a 0.05-s slow disk against a 0.01-s
+     client timeout until the kills, the leader is killed mid-segment at
+     tick 7 and follower 2 at tick 12, one ``ServerSet.request_info`` for
+     ``breaking0 term0`` a tick, through tick 24 and on until every
+     replica is live. It must show zero failed requests, 2 deaths, 2
+     recoveries, 2 failovers, epoch 2, leader 0, no lost and at least 3
+     healed ticks, a gap-free log, a zombie writer at epoch 0 refused with
+     the manifest untouched, every replica's rt and bg state bit for bit
+     the reference's, no climb of device memory from one restart to the
+     next, and ``decay_prune_multi``, ``score_gate`` and ``bucket_topk``
+     launched by the fleet (counts set to 0 before, the reference's
+     launches subtracted). Printed with the card's name and power limit:
+     ms per fleet tick (``offer_tick``) at base and spike ticks, request
+     p50/p99 over the run and the failover window with hedges and
+     timeouts, each restart's time to fresh and split against the 80-s
+     rank period and the device memory after it, ticks from kill to
+     detection and to readmission, each leader save's ms per engine, the
+     peak and the phase's wall time; (b) ``serve_assist --fleet 3
+     --kill-leader-at 7 --kill-follower-at 12 --workload firehose
+     --spike-at 6 --compact-every 8 --keep-bases 2 --ticks 24`` at the
+     launcher's own settings, whose ``[done] fleet:`` line must report 2
+     failovers, 2 recoveries, 0 lost ticks and a compaction.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -206,7 +233,8 @@ hash cell (``score_gate`` and ``bucket_topk`` in its rank cycle), then
 times ``score_gate``'s and ``assoc_score``'s bare launches on the
 synthetic lanes and on the lanes its last rank cycle gave ``score_gate``.
 ``--flash-crowd-only`` builds the kernels and runs phase 9 alone;
-``--tune-only`` builds them and runs phase 10 alone.
+``--tune-only`` builds them and runs phase 10 alone; ``--fleet-only``
+builds them and runs phase 11 alone.
 ``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
 DIR lies inside this checkout (a parent commit unpacked with ``git
 archive`` under ``build/``), so one call on one card profiles two trees.
@@ -216,6 +244,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -3329,6 +3358,335 @@ def run_tuning(dev, card: str, ticks=None) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the self-healing replicated fleet at deployment scale.
+# ---------------------------------------------------------------------------
+
+# The chaos schedule of tests/test_fleet.py at the hash cell's widths:
+# three replicas under serve_assist's firehose workload (1,024 queries and
+# 64 tweets a tick at base, a 50x spike from tick 4 capped at 16,384 and
+# 2,048, spam bursts, seed 0); replica 2 answers through a 0.05-s slow
+# disk against a 0.01-s client timeout until the kills; the leader dies
+# mid-segment at tick 7, follower 2 at tick 12; the run goes to tick 24
+# and on until every replica is live (at most 16 ticks more). The spam
+# burst of ticks 0-2 and each change of a tick's array sizes seal a
+# segment early (4 ticks a segment otherwise): with the spike's first full
+# tick at 5 the dying leader's writer holds ticks 5 and 6, which it tears.
+# (From tick 6 on, its writer would hold nothing at tick 7.)
+FLEET_SPIKE_AT = 4
+FLEET_KILL_LEADER_AT = 7
+FLEET_KILL_FOLLOWER_AT = 12
+FLEET_TICKS = 24
+FLEET_EXTRA_TICKS = 16
+FLEET_SLOW_S = 0.05
+FLEET_TIMEOUT_S = 0.01
+FLEET_KERNELS = FLASH_KERNELS
+# serve_assist --fleet at the launcher's own settings (default_configs()).
+FLEET_CLI_ARGV = ("--fleet", "3", "--kill-leader-at", "7",
+                  "--kill-follower-at", "12", "--workload", "firehose",
+                  "--spike-at", "6", "--compact-every", "8", "--keep-bases",
+                  "2", "--ticks", "24")
+FLEET_DONE = re.compile(
+    r"\[done\] fleet: (\d+) requests \((\d+) hedged\), (\d+) failovers, "
+    r"(\d+) recoveries, log healed (\d+) ticks \((\d+) lost\), epoch "
+    r"(\d+), (\d+) compactions \(floor=(\S+)\)")
+
+
+def _fleet_timers(fleet, restarts, saves):
+    """Time each restart (``recover_service`` and the device memory after
+    it) and each leader save per engine, through the fleet's own calls."""
+    import torch
+    restart = fleet._restart
+
+    def timed_restart(rep):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restart(rep)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = rep.last_recovery
+        restarts.append({
+            "rid": rep.rid, "time_to_fresh_ms": ms,
+            **{e: {"snapshot": st[e]["restored_step"],
+                   "restore_ms": st[e]["restore_s"] * 1e3,
+                   "ticks_replayed": st[e]["n_ticks"],
+                   "replay_ms": (st[e]["wall_s"] - st[e]["rank_s"]) * 1e3,
+                   "rank_ms": st[e]["rank_s"] * 1e3} for e in ("rt", "bg")},
+            "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    fleet._restart = timed_restart
+    for label, ck in (("rt", fleet.rt_ckpt), ("bg", fleet.bg_ckpt)):
+        def timed_save(step, *a, _save=ck.save, _ck=ck, _label=label, **kw):
+            t0 = time.perf_counter()
+            out = _save(step, *a, **kw)
+            saves.append({"engine": _label, "step": step,
+                          "kind": _ck.last_save_kind,
+                          "bytes": _ck.last_save_bytes,
+                          "ms": (time.perf_counter() - t0) * 1e3})
+            return out
+        ck.save = timed_save
+
+
+def fleet_chaos(dev, card: str):
+    """Phase 11(a): the chaos run on the hash cell, against an
+    uninterrupted service stepping the same ticks. Returns the fleet's
+    launch counts (the reference's subtracted) and the report."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.background import AssistanceService
+    from repro_torch.distributed.fleet import FleetConfig, ServingFleet
+    from repro_torch.launch import serve_assist
+    from repro_torch.streaming import (FirehoseLogReader, FirehoseLogWriter,
+                                       WriterFencedError, log_epoch, slow_io)
+    cfg, _ = deployment_config("hash")
+    rank_period_ms = cfg.rank_every * 10.0 * 1e3     # 10-s ticks
+    wl = serve_assist.firehose_workload(FLEET_SPIKE_AT, 50.0)
+    head = serve_assist.FIREHOSE_HEAD
+    fcfg = FleetConfig(n_replicas=3, heartbeat_timeout=2, restart_after=1,
+                       snapshot_every=8, ticks_per_segment=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    restarts, saves, ticks = [], [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        fleet = ServingFleet(tmp, cfg, fcfg, device=dev)
+        ref = AssistanceService(cfg, bg_cfg=fleet.bg_cfg, device=dev)
+        _fleet_timers(fleet, restarts, saves)
+        ss = fleet.serverset(timeout_s=FLEET_TIMEOUT_S, max_retries=1)
+        slow_io(fleet.handles[2], ("related",), delay_s=FLEET_SLOW_S)
+        all_live = lambda: all(r.status == "live" for r in fleet._replicas)
+        tk.reset_launches()
+        ref_launches = {n: 0 for n in tk.KERNELS}
+        kills, torn = {}, None
+        t = 0
+        while t < FLEET_TICKS or (t < FLEET_TICKS + FLEET_EXTRA_TICKS
+                                  and not all_live()):
+            ev, tw = wl.gen_tick(t)
+            if t == FLEET_KILL_LEADER_AT:
+                fleet.handles[2]._slow_io_undo()
+                if fleet.leader() != 0:
+                    raise AssertionError(f"fleet: leader {fleet.leader()}")
+                torn = fleet.kill(0, mid_segment=True)
+                kills[0] = t
+            if t == FLEET_KILL_FOLLOWER_AT:
+                if fleet._replicas[2].status != "live" or \
+                        fleet.leader() == 2:
+                    raise AssertionError(f"fleet: {fleet.metrics()}")
+                fleet.kill(2)
+                kills[2] = t
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = fleet.offer_tick(t, ev, tw)
+            torch.cuda.synchronize()
+            offer_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            route = ss.request_info(head)   # raises iff no replica answers
+            request_ms = (time.perf_counter() - t0) * 1e3
+            ticks.append({"t": t, "queries": int(np.asarray(ev.valid).sum()),
+                          "tweets": int(np.asarray(tw.valid).sum()),
+                          "info": info, "offer_ms": offer_ms,
+                          "request_ms": request_ms, "replica": route.replica,
+                          "hedged": route.hedged,
+                          "rows": len(route.suggestions)})
+            before = dict(tk.LAUNCHES)
+            ref.step(ev, tw)
+            for n in tk.KERNELS:
+                ref_launches[n] += tk.LAUNCHES[n] - before[n]
+            t += 1
+        launches = {n: tk.LAUNCHES[n] - ref_launches[n] for n in tk.KERNELS}
+        m = fleet.metrics()
+        if not all_live() or torn is None or m["n_deaths_detected"] != 2 \
+                or m["n_recoveries"] != 2 or m["n_failovers"] != 2 \
+                or m["epoch"] != 2 or m["leader"] != 0 \
+                or m["n_lost_ticks"] != 0 or m["n_healed_ticks"] < 3:
+            raise AssertionError(f"fleet: metrics {m}, torn {torn}")
+        if ss.n_requests != t or ss.n_timeouts <= 0:
+            raise AssertionError(f"fleet: {ss.n_requests} requests over {t} "
+                                 f"ticks, {ss.n_timeouts} timeouts")
+        fleet._replicas[fleet.leader()].writer.flush()
+        reader = FirehoseLogReader(fleet.log_dir)
+        logged = [tk_ for tk_, _, _ in reader.read_ticks(0)]
+        if logged != list(range(t)):
+            raise AssertionError(f"fleet: the log is not gap-free: {logged}")
+        # the fenced zombie: an ex-leader writer at epoch 0 wakes up
+        segs = [(x.first, x.last, x.sha256) for x in reader.segments]
+        zombie = FirehoseLogWriter(fleet.log_dir, ticks_per_segment=4,
+                                   epoch=0)
+        try:
+            zombie.append(t + 100, ev, tw)
+            raise AssertionError("fleet: the zombie's append landed")
+        except WriterFencedError as e:
+            fenced = str(e)
+        if log_epoch(fleet.log_dir) != 2 or [
+                (x.first, x.last, x.sha256)
+                for x in reader.refresh().segments] != segs:
+            raise AssertionError("fleet: the zombie moved the manifest")
+        # every replica, leaf by leaf, bit for bit the uninterrupted service
+        want = {"rt": ref.rt.state_arrays(), "bg": ref.bg.state_arrays()}
+        service_bytes = sum(a.nbytes for w in want.values()
+                            for a in w.values())
+        for rep in fleet._replicas:
+            for e in ("rt", "bg"):
+                got = getattr(rep.service, e).state_arrays()
+                if not arrays_bits_equal(got, want[e]):
+                    raise AssertionError(f"fleet: replica {rep.rid} {e} "
+                                         f"differs from the reference")
+                del got
+        n_restarts = [r.n_restarts for r in fleet._replicas]
+        routed = {k: getattr(ss, k) for k in ("n_requests", "n_hedged",
+                                              "n_timeouts")}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del want, ref, fleet, ss, reader, zombie
+    torch.cuda.empty_cache()
+    missing = [n for n in FLEET_KERNELS if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"fleet: kernels not launched: {missing}")
+    if n_restarts != [1, 0, 1] or len(restarts) != 2:
+        raise AssertionError(f"fleet: restarts {n_restarts}, {restarts}")
+    # a killed service is freed before its restart: the second restart
+    # holds no more than the first (the same four services live)
+    climb = restarts[1]["allocated_gib"] - restarts[0]["allocated_gib"]
+    if climb * 2**30 > service_bytes / 2:
+        raise AssertionError(f"fleet: device memory climbs with restarts: "
+                             f"{[r['allocated_gib'] for r in restarts]} GiB,"
+                             f" a service holds {service_bytes / 2**30:.3f}")
+    died = {r: x["t"] for x in ticks for r in x["info"]["died"]}
+    back = {r: x["t"] for x in ticks for r in x["info"]["recovered"]}
+    window = [x for x in ticks if min(kills.values()) <= x["t"]
+              <= max(back.values())]
+    base = [x for x in ticks if x["t"] < FLEET_SPIKE_AT]
+    spike = [x for x in ticks if x["t"] >= FLEET_SPIKE_AT]
+    report = {
+        "card": card, "ticks": t, "fleet": dataclasses.asdict(fcfg),
+        "metrics": m,
+        **routed, "n_failed_requests": 0,
+        "offer_tick_ms": {"base": _ms_stats([x["offer_ms"] for x in base]),
+                          "spike": _ms_stats([x["offer_ms"]
+                                              for x in spike])},
+        "request_ms": {"run": _ms_stats([x["request_ms"] for x in ticks]),
+                       "failover_window": _ms_stats(
+                           [x["request_ms"] for x in window]),
+                       "window_ticks": [window[0]["t"], window[-1]["t"]]},
+        "kill_to_detection_ticks": {r: died[r] - k for r, k in kills.items()},
+        "detection_to_readmission_ticks": {r: back[r] - died[r]
+                                           for r in kills},
+        "restarts": restarts, "rank_period_ms": rank_period_ms,
+        "saves": saves, "peak_mem_gib": peak,
+        "service_gib": service_bytes / 2**30, "torn": torn,
+        "zombie": fenced, "launches": {n: k for n, k in launches.items()
+                                       if k},
+        "reference_launches": {n: k for n, k in ref_launches.items() if k},
+        "per_tick": [{"t": x["t"], "queries": x["queries"],
+                      "tweets": x["tweets"], "died": x["info"]["died"],
+                      "recovered": x["info"]["recovered"],
+                      "appended": x["info"]["appended"],
+                      "offer_ms": round(x["offer_ms"], 3),
+                      "request_ms": round(x["request_ms"], 3),
+                      "replica": x["replica"], "hedged": x["hedged"],
+                      "rows": x["rows"]} for x in ticks]}
+    return launches, report
+
+
+def fleet_cli(dev):
+    """Phase 11(b): serve_assist --fleet at the launcher's own settings,
+    its [done] line read back. Returns launch counts and the report."""
+    import tempfile
+    from repro_torch import kernels as tk
+    from repro_torch.launch import serve_assist
+    ecfg, scfg = serve_assist.default_configs()
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_cli_") as tmp:
+        opts = serve_assist.options(list(FLEET_CLI_ARGV) + ["--out", tmp])
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        res = serve_assist.run_fleet(ecfg, scfg, opts, dev, log=lines.append)
+        wall = time.perf_counter() - t0
+        launches = dict(tk.LAUNCHES)
+        offer = _ms_stats([x["offer_ms"] for x in res["ticks"]])
+        del res
+    (done,) = [m for m in map(FLEET_DONE.search, lines) if m]
+    failovers, recoveries, lost, compactions = (
+        int(done.group(i)) for i in (3, 4, 6, 8))
+    if (failovers, recoveries, lost) != (2, 2, 0) or compactions < 1:
+        raise AssertionError(f"fleet CLI: {done.group(0)}")
+    missing = [n for n in FLEET_KERNELS if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"fleet CLI: kernels not launched: {missing}")
+    return launches, {"argv": " ".join(FLEET_CLI_ARGV), "wall_s": wall,
+                      "offer_tick_ms": offer, "lines": lines,
+                      "launches": {n: k for n, k in launches.items() if k}}
+
+
+def run_fleet(dev, card: str):
+    """Phase 11: (a) the chaos run, (b) ``serve_assist --fleet``. Returns
+    the phase's launch counts (the fleet's own, both runs)."""
+    import torch
+    t_phase = time.perf_counter()
+    log(f"[11] the replicated fleet ({card}): 3 replicas on the hash cell, "
+        f"the firehose workload (50x spike from tick "
+        f"{FLEET_SPIKE_AT}), leader killed mid-segment at "
+        f"{FLEET_KILL_LEADER_AT}, follower 2 at {FLEET_KILL_FOLLOWER_AT}, "
+        f"full snapshots (no delta chain)")
+    t0 = time.perf_counter()
+    chaos_launches, rep = fleet_chaos(dev, card)
+    rep["wall_s"] = time.perf_counter() - t0
+    log(f"[11] fleet chaos ({card}): " + json.dumps(rep))
+    m = rep["metrics"]
+    for kind in ("base", "spike"):
+        st = rep["offer_tick_ms"][kind]
+        log(f"  fleet ({card}): {kind} ticks, ms per fleet tick "
+            f"(offer_tick) p50 {st['p50']:.3f}, max {st['max']:.3f} "
+            f"(n {st['n']})")
+    for k, st in (("whole run", rep["request_ms"]["run"]),
+                  (f"failover window, ticks {rep['request_ms']['window_ticks']}",
+                   rep["request_ms"]["failover_window"])):
+        log(f"  fleet ({card}): ServerSet.request ms over the {k}: p50 "
+            f"{st['p50']:.4f}, p99 {st['p99']:.4f}, max {st['max']:.4f} "
+            f"(n {st['n']})")
+    log(f"  fleet: {rep['n_requests']} requests, 0 failed, "
+        f"{rep['n_hedged']} hedged, {rep['n_timeouts']} timeouts; "
+        f"{m['n_deaths_detected']} deaths detected, {m['n_recoveries']} "
+        f"recoveries, {m['n_failovers']} failovers, epoch {m['epoch']}, "
+        f"leader {m['leader']}, {m['n_healed_ticks']} ticks healed, "
+        f"{m['n_lost_ticks']} lost; the log gap-free over {rep['ticks']} "
+        f"ticks; the zombie refused ({rep['zombie']}); every replica bit for "
+        f"bit the uninterrupted service")
+    log(f"  fleet: ticks from kill to detection "
+        f"{rep['kill_to_detection_ticks']}, from detection to readmission "
+        f"{rep['detection_to_readmission_ticks']}")
+    for r in rep["restarts"]:
+        log(f"  fleet ({card}): restart of replica {r['rid']}: time to fresh "
+            f"{r['time_to_fresh_ms']:.3f} ms of the "
+            f"{rep['rank_period_ms']:.0f}-ms rank period; "
+            + "; ".join(f"{e}: snapshot {r[e]['snapshot']}, restore "
+                        f"{r[e]['restore_ms']:.3f} ms, "
+                        f"{r[e]['ticks_replayed']} ticks replayed in "
+                        f"{r[e]['replay_ms']:.3f} ms, handoff rank "
+                        f"{r[e]['rank_ms']:.3f} ms" for e in ("rt", "bg"))
+            + f"; device memory after it {r['allocated_gib']:.3f} GiB "
+            f"allocated, peak {r['peak_gib']:.3f} GiB")
+    for x in rep["saves"]:
+        log(f"  fleet ({card}): leader save at tick {x['step'] - 1}, "
+            f"{x['engine']}: {x['kind']}, {x['bytes']} B, {x['ms']:.3f} ms")
+    log(f"  fleet: peak {rep['peak_mem_gib']:.3f} GiB (a service holds "
+        f"{rep['service_gib']:.3f} GiB of state); launches "
+        f"{rep['launches']} (the reference's {rep['reference_launches']} "
+        f"not counted)")
+    log(f"  fleet chaos took {rep['wall_s']:.1f} s")
+    cli_launches, cli = fleet_cli(dev)
+    log(f"[11] serve_assist {cli['argv']} ({card}), default_configs(): "
+        f"{cli['wall_s']:.1f} s, offer_tick ms {json.dumps(cli['offer_tick_ms'])},"
+        f" launches {cli['launches']}")
+    for line in cli["lines"]:
+        log("  " + line.strip())
+    torch.cuda.empty_cache()
+    log(f"  fleet phase took {time.perf_counter() - t_phase:.1f} s")
+    return {n: chaos_launches[n] + cli_launches[n] for n in chaos_launches}
+
+
 def profile_region() -> None:
     """The region cell's 17 ticks, then one more ingest tick and one rank
     cycle under the profiler, on the ``repro_torch`` package on the path."""
@@ -3405,6 +3763,9 @@ def main() -> int:
     ap.add_argument("--tune-only", action="store_true",
                     help="build the kernels and run phase 10 (tuning and "
                          "the oracle), and nothing else")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build the kernels and run phase 11 (the "
+                         "replicated fleet), and nothing else")
     ap.add_argument("--root", default=str(ROOT),
                     help="with --profile-region-only or --profile-hash-only:"
                          " a directory inside this checkout whose "
@@ -3439,7 +3800,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     t_start = time.perf_counter()
-    if args.flash_crowd_only or args.tune_only:
+    if args.flash_crowd_only or args.tune_only or args.fleet_only:
         log(f"[1] card: {card} | torch {torch.__version__} cuda "
             f"{torch.version.cuda}")
         for stem in build.build_all():
@@ -3448,6 +3809,8 @@ def main() -> int:
             run_flash_crowd(dev, card, score_floor())
         if args.tune_only:
             run_tuning(dev, card)
+        if args.fleet_only:
+            run_fleet(dev, card)
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3597,6 +3960,10 @@ def main() -> int:
 
     # ---- 10. tuning and the oracle ----
     launches["tuning"] = run_tuning(dev, card, ticks)
+    torch.cuda.empty_cache()
+
+    # ---- 11. the self-healing replicated fleet ----
+    launches["fleet"] = run_fleet(dev, card)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

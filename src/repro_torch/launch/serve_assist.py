@@ -43,6 +43,16 @@ variants and writes the plan into the persisted tables' meta, where the
 frontends' ``metrics()["tuned_variants"]`` report it. The plan routes
 nothing: the engine runs the same with or without it.
 
+With ``--fleet N`` the run switches to the self-healing replicated fleet
+(``distributed.fleet.ServingFleet``): N full serving stacks replaying one
+leader-written, epoch-fenced durable log, heartbeat failure detection,
+lag-gated readmission, and hedged staleness-aware routing. The chaos
+knobs ``--kill-leader-at`` (mid-segment) and ``--kill-follower-at``
+demonstrate failover and self-healing live; requests keep being answered
+throughout. The fleet path reads ``--compact-every`` and ``--keep-bases``
+and ignores the single-stack flags; the kill flags do nothing without
+``--fleet``.
+
   python -m repro_torch.launch.serve_assist --ticks 120 --out /tmp/assist
   python -m repro_torch.launch.serve_assist --ticks 120 --out /tmp/assist --recover
   python -m repro_torch.launch.serve_assist --device cpu --ticks 61 \\
@@ -52,14 +62,15 @@ nothing: the engine runs the same with or without it.
       --compact-every 16
   python -m repro_torch.launch.serve_assist --ticks 24 --out /tmp/assist_at \\
       --autotune
+  python -m repro_torch.launch.serve_assist --ticks 48 --out /tmp/assist_f \\
+      --fleet 3 --workload firehose --spike-at 6 \\
+      --kill-leader-at 7 --kill-follower-at 12
 
-Port of the JAX package's ``launch/serve_assist.py``, its single-stack
-path. The loop is :func:`run` (engine config, base stream config,
-:class:`AssistOptions`, device); :func:`main` calls it with the JAX
-file's own settings. Engines run on CUDA unless ``--device`` names
-another device. Flags of modules not ported yet raise
-``NotImplementedError`` naming their ROADMAP item: ``--fleet``,
-``--kill-leader-at`` and ``--kill-follower-at`` (the fleet, item 12).
+Port of the JAX package's ``launch/serve_assist.py``. The single-stack
+loop is :func:`run` and the fleet's is :func:`run_fleet` (each takes the
+engine config, the base stream config, :class:`AssistOptions` and a
+device); :func:`main` calls one of them with the JAX file's own settings.
+Engines run on CUDA unless ``--device`` names another device.
 ``--use-kernel`` is not carried over: on CUDA every hot path runs its
 kernel, and the port's ``SpellConfig`` has no ``use_kernel`` field.
 
@@ -87,6 +98,7 @@ from ..core.plan import TunedPlan
 from ..core.spelling import SpellConfig, spelling_cycle
 from ..data.stream import StreamConfig, SyntheticStream, steve_jobs_scenario
 from ..distributed.fault_tolerance import CheckpointManager, ReplicaGroup
+from ..distributed.fleet import FleetConfig, ServingFleet
 from ..serving.serve import ServerSet, SuggestFrontend, pack_suggestions
 from ..streaming import (CompactionConfig, FirehoseLogReader,
                          FirehoseLogWriter, FirehoseWorkload, LogCompactor,
@@ -102,9 +114,9 @@ FIREHOSE_HEAD = "breaking0 term0"   # the firehose workload's head query
 
 @dataclasses.dataclass(frozen=True)
 class AssistOptions:
-    """The run's options, one per ported CLI flag. The first eight have no
-    defaults; overload control, the firehose workload and compaction
-    default to off, as their flags do."""
+    """The run's options, one per CLI flag. The first eight have no
+    defaults; overload control, the firehose workload, compaction and the
+    fleet default to off, as their flags do."""
     ticks: int
     out: str
     replicas: int
@@ -120,6 +132,9 @@ class AssistOptions:
     spike_mult: float = 50.0      # firehose: its peak volume multiplier
     compact_every: int = 0  # fold the log into bases every N ticks (0: off)
     keep_bases: int = 2     # compaction fallback depth
+    fleet: int = 0          # replicas of the self-healing fleet (0: off)
+    kill_leader_at: int = -1      # fleet: kill the leader mid-segment here
+    kill_follower_at: int = -1    # fleet: kill a live follower here
     # the tuner's plan (--autotune), written into the persisted tables'
     # meta; it routes nothing (``core/plan.py``)
     plan: Optional[TunedPlan] = None
@@ -153,6 +168,20 @@ def _fmt(v, nd: int = 1):
     if isinstance(v, float):
         return f"{v:.{nd}f}"
     return str(v)
+
+
+def _hose(opts: AssistOptions, stream_cfg: StreamConfig):
+    """The run's hose: (gen_tick, tokenizer, whether gen_tick is pure in
+    t, head query, the tick from which it is asked)."""
+    if opts.workload == "firehose":
+        wl = firehose_workload(opts.spike_at, opts.spike_mult)
+        return wl.gen_tick, wl.tok, True, FIREHOSE_HEAD, opts.spike_at
+    if opts.workload == "synthetic":
+        scfg, event = steve_jobs_scenario(base_cfg=stream_cfg)
+        stream = SyntheticStream(scfg, seed=0)
+        return (stream.gen_tick, stream.tok, False, event.terms[0],
+                event.t_start)
+    raise ValueError(f"unknown workload {opts.workload!r}")
 
 
 def _sync(device: torch.device) -> None:
@@ -209,17 +238,7 @@ def run(ecfg: EngineConfig, stream_cfg: StreamConfig, opts: AssistOptions,
     the first frontend's ``metrics()``).
     """
     device = stores.resolve_device(device)
-    if opts.workload == "firehose":
-        wl = firehose_workload(opts.spike_at, opts.spike_mult)
-        gen_tick, tok, pure = wl.gen_tick, wl.tok, True
-        head, head_t0 = FIREHOSE_HEAD, opts.spike_at
-    elif opts.workload == "synthetic":
-        scfg, event = steve_jobs_scenario(base_cfg=stream_cfg)
-        stream = SyntheticStream(scfg, seed=0)
-        gen_tick, tok, pure = stream.gen_tick, stream.tok, False
-        head, head_t0 = event.terms[0], event.t_start
-    else:
-        raise ValueError(f"unknown workload {opts.workload!r}")
+    gen_tick, tok, pure, head, head_t0 = _hose(opts, stream_cfg)
     bgcfg = background_config(ecfg, rank_every_mult=3)
 
     rt_dir = os.path.join(opts.out, "rt")
@@ -528,15 +547,71 @@ def run(ecfg: EngineConfig, stream_cfg: StreamConfig, opts: AssistOptions,
     return res
 
 
-# Flags of the JAX launcher whose modules are not ported yet: dest, flag,
-# what it needs.
-_UNPORTED = (
-    ("fleet", "--fleet", "ROADMAP Queue 1 item 12 (distributed/fleet.py)"),
-    ("kill_leader_at", "--kill-leader-at",
-     "ROADMAP Queue 1 item 12 (distributed/fleet.py)"),
-    ("kill_follower_at", "--kill-follower-at",
-     "ROADMAP Queue 1 item 12 (distributed/fleet.py)"),
-)
+def run_fleet(ecfg: EngineConfig, stream_cfg: StreamConfig,
+              opts: AssistOptions, device="cuda", *,
+              log: Callable[[str], None] = print) -> Dict:
+    """``--fleet N``: the self-healing replicated fleet over ticks
+    ``[0, opts.ticks)``, the chaos knobs wired.
+
+    ``opts.fleet`` replicas, each a whole serving stack (rt + bg,
+    ``background_config(ecfg)``), under ``FleetConfig`` defaults with
+    ``opts.compact_every`` and ``opts.keep_bases``; the leader is killed
+    mid-segment at ``opts.kill_leader_at`` and a live follower at
+    ``opts.kill_follower_at``; the head query is asked every 6 ticks from
+    its onset through a ``ServerSet`` (0.25-s timeout, one retry). Returns
+    ``fleet``, ``serverset``, per-tick records ``ticks`` (``t``,
+    ``offer_tick``'s ``info``, ``offer_ms``: its wall, synced),
+    ``requests`` (``t``, ``RouteResult``, ``ms``) and the final
+    ``metrics``.
+    """
+    device = stores.resolve_device(device)
+    gen_tick, _, _, head, head_t0 = _hose(opts, stream_cfg)
+    fleet = ServingFleet(opts.out, ecfg,
+                         FleetConfig(n_replicas=opts.fleet,
+                                     compact_every=opts.compact_every,
+                                     keep_bases=opts.keep_bases),
+                         device=device)
+    ss = fleet.serverset(timeout_s=0.25, max_retries=1)
+    res: Dict = {"fleet": fleet, "serverset": ss, "ticks": [],
+                 "requests": []}
+    for t in range(opts.ticks):
+        ev, tw = gen_tick(t)
+        if t == opts.kill_leader_at:
+            lead = fleet.leader()
+            fleet.kill(lead, mid_segment=True)
+            log(f"[t={t}] leader {lead} KILLED mid-segment (torn tail)")
+        if t == opts.kill_follower_at:
+            victim = next((r.rid for r in fleet._replicas
+                           if r.status == "live"
+                           and r.rid != fleet.leader()), None)
+            if victim is not None:
+                fleet.kill(victim)
+                log(f"[t={t}] follower {victim} killed")
+        t0 = time.perf_counter()
+        info = fleet.offer_tick(t, ev, tw)
+        _sync(device)
+        res["ticks"].append({"t": t, "info": info,
+                             "offer_ms": (time.perf_counter() - t0) * 1e3})
+        if t % 6 == 0 and t >= head_t0:
+            t0 = time.perf_counter()
+            route = ss.request_info(head, k=5)
+            res["requests"].append({"t": t, "route": route,
+                                    "ms": (time.perf_counter() - t0) * 1e3})
+            m = fleet.metrics()
+            log(f"[t={t}] related('{head}') via replica {route.replica} "
+                f"(tick={_fmt(route.tick)} staleness={_fmt(route.staleness)}"
+                f"{' HEDGED' if route.hedged else ''}) "
+                f"{len(route.suggestions)} rows | leader={m['leader']} "
+                f"epoch={m['epoch']} "
+                f"status={[r['status'] for r in m['replicas'].values()]}")
+    m = res["metrics"] = fleet.metrics()
+    log(f"[done] fleet: {ss.n_requests} requests ({ss.n_hedged} hedged), "
+        f"{m['n_failovers']} failovers, {m['n_recoveries']} recoveries, "
+        f"log healed {m['n_healed_ticks']} ticks "
+        f"({m['n_lost_ticks']} lost), epoch {m['epoch']}, "
+        f"{m['n_compactions']} compactions "
+        f"(floor={_fmt(m['log_floor_tick'])})")
+    return res
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -544,6 +619,14 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ticks", type=int, default=120)
     ap.add_argument("--out", default="/tmp/assist")
     ap.add_argument("--replicas", type=int, default=2)
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="run N self-healing fleet replicas instead of the "
+                         "single-stack path (distributed.fleet)")
+    ap.add_argument("--kill-leader-at", type=int, default=-1,
+                    help="fleet chaos: kill the log-writer leader "
+                         "mid-segment at this tick")
+    ap.add_argument("--kill-follower-at", type=int, default=-1,
+                    help="fleet chaos: kill a live follower at this tick")
     ap.add_argument("--fail-replica-at", type=int, default=-1,
                     help="tick at which backend replica 0 dies (failover demo)")
     ap.add_argument("--crash-at", type=int, default=-1,
@@ -585,28 +668,14 @@ def _parser() -> argparse.ArgumentParser:
                          "the plan in the frontends' metrics")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda)")
-    not_ported = "not ported yet: raises NotImplementedError"
-    ap.add_argument("--fleet", type=int, default=0, help=not_ported)
-    ap.add_argument("--kill-leader-at", type=int, default=-1, help=not_ported)
-    ap.add_argument("--kill-follower-at", type=int, default=-1,
-                    help=not_ported)
     return ap
 
 
-def main(argv=None) -> int:
-    ap = _parser()
-    args = ap.parse_args(argv)
-    for dest, flag, needs in _UNPORTED:
-        if getattr(args, dest) != ap.get_default(dest):
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet: it needs {needs}")
-    ecfg, scfg = default_configs()
-    plan = None
-    if args.autotune:
-        from .autotune import tune
-        plan = tune(ecfg, device=args.device)
-        print("[assist] tuned plan:", plan.variants(), flush=True)
-    opts = AssistOptions(ticks=args.ticks, out=args.out,
+def options(argv=None, plan: Optional[TunedPlan] = None) -> AssistOptions:
+    """The :class:`AssistOptions` of a command line (``sys.argv`` when
+    ``argv`` is None), with the tuner's ``plan`` if one was made."""
+    args = _parser().parse_args(argv)
+    return AssistOptions(ticks=args.ticks, out=args.out,
                          replicas=args.replicas,
                          fail_replica_at=args.fail_replica_at,
                          crash_at=args.crash_at, recover=args.recover,
@@ -615,8 +684,24 @@ def main(argv=None) -> int:
                          tick_ms=args.tick_ms, workload=args.workload,
                          spike_at=args.spike_at, spike_mult=args.spike_mult,
                          compact_every=args.compact_every,
-                         keep_bases=args.keep_bases, plan=plan)
-    run(ecfg, scfg, opts, args.device)
+                         keep_bases=args.keep_bases, fleet=args.fleet,
+                         kill_leader_at=args.kill_leader_at,
+                         kill_follower_at=args.kill_follower_at, plan=plan)
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    ecfg, scfg = default_configs()
+    plan = None
+    if args.autotune:
+        from .autotune import tune
+        plan = tune(ecfg, device=args.device)
+        print("[assist] tuned plan:", plan.variants(), flush=True)
+    opts = options(argv, plan)
+    if opts.fleet > 0:
+        run_fleet(ecfg, scfg, opts, args.device)
+    else:
+        run(ecfg, scfg, opts, args.device)
     return 0
 
 

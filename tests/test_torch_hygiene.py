@@ -202,10 +202,29 @@ def _serve_assist_main(tmp_path, device=None):
     return torch.device(device)
 
 
+def _serving_fleet(tmp_path, **kw):
+    from repro_torch.distributed.fleet import FleetConfig, ServingFleet
+    fleet = ServingFleet(str(tmp_path), _cfg(),
+                         FleetConfig(n_replicas=2, compact_every=1), **kw)
+    (device,) = {fleet.compactor.device} | {
+        e.device for r in fleet._replicas for e in (r.service.rt,
+                                                     r.service.bg)}
+    return device
+
+
+def _serve_assist_fleet_main(tmp_path, device=None):
+    from repro_torch.launch import serve_assist
+    argv = ["--fleet", "2", "--ticks", "1", "--out", str(tmp_path)]
+    assert serve_assist.main(argv + (["--device", device] if device else
+                                     [])) == 0
+    return torch.device(device)
+
+
 @pytest.mark.parametrize("entry", [_assistance_service, _recover_service,
                                    _serve_assist_run, _serve_assist_main,
                                    _overload_service, _log_compactor,
-                                   _serve_assist_firehose_run],
+                                   _serve_assist_firehose_run,
+                                   _serving_fleet, _serve_assist_fleet_main],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_serving_entry_points_default_to_cuda_and_refuse_without_it(
         monkeypatch, tmp_path, entry):

@@ -8,17 +8,22 @@ package's ``tests/test_recovery.py`` cases, held against the uninterrupted
 port run); the ``serve_assist`` loop crashed mid-segment and at a sealed
 segment, then resumed with ``--recover``, ends equal to the uninterrupted
 run (engine states, state snapshots, persisted suggestion and spelling
-tables), and its CLI runs on the CPU, takes the overload, workload and
-compaction flags, and refuses the flags whose modules are not ported.
+tables), and its CLI runs on the CPU and takes the overload, workload and
+compaction flags; its ``--fleet`` path, with the kill and compaction
+flags, reports the JAX launcher's counters on the same command line.
 Followers made after a recovery own their state: the port's stores
 write in place, so replicas that shared one state would diverge (shown
 here too).
 
-Imports torch and ``repro_torch`` only.
+Imports torch and ``repro_torch``; the ``--fleet`` test also runs the JAX
+launcher.
 """
 import dataclasses
+import gc
 import json
 import os
+import re
+import sys
 
 import numpy as np
 import pytest
@@ -366,16 +371,60 @@ def test_serve_assist_main_runs_on_the_cpu(tmp_path, capsys):
     assert CheckpointManager(str(tmp_path / "rt")).steps() == [12]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--fleet", "3"], "item 12"),
-    (["--kill-leader-at", "7"], "item 12"),
-    (["--kill-follower-at", "7"], "item 12"),
-], ids=lambda x: x[0] if isinstance(x, list) else None)
-def test_serve_assist_refuses_unported_flags(tmp_path, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve_assist.main(["--device", "cpu", "--out", str(tmp_path)]
-                          + argv)
-    assert not os.path.exists(tmp_path / "log")     # refused before any work
+_DONE_FLEET = re.compile(
+    r"\[done\] fleet: \d+ requests \(\d+ hedged\), (\d+) failovers, "
+    r"(\d+) recoveries, log healed (\d+) ticks \((\d+) lost\), epoch "
+    r"(\d+), (\d+) compactions \(floor=(\S+)\)")
+
+
+def _fleet_counters(out: str):
+    """The ``[done] fleet:`` line's failovers, recoveries, healed, lost,
+    epoch, compactions and floor (hedges depend on the wall clock)."""
+    (line,) = [m.groups() for m in map(_DONE_FLEET.search,
+                                       out.splitlines()) if m]
+    return line
+
+
+@pytest.fixture(scope="module")
+def _release_jax():
+    """The JAX launcher's compiled executables (~4,000 memory maps of the
+    worker process) are released after the module: XLA:CPU's maps count
+    against the process's map limit, which the tier-1 run's JAX-heavy
+    workers come close to."""
+    yield
+    import jax
+    jax.clear_caches()
+    gc.collect()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fleet", "3", "--ticks", "4"],
+    ["--fleet", "3", "--ticks", "8", "--kill-leader-at", "1"],
+    ["--fleet", "3", "--ticks", "8", "--kill-follower-at", "1"],
+    ["--fleet", "3", "--ticks", "8", "--compact-every", "4"],
+], ids=["fleet", "kill-leader", "kill-follower", "compact"])
+def test_serve_assist_fleet_matches_the_jax_launcher(tmp_path, capsys,
+                                                     monkeypatch, argv,
+                                                     _release_jax):
+    """``--fleet`` runs the port's ``ServingFleet`` at the JAX launcher's
+    settings on the CPU; its ``[done] fleet:`` counters equal those of
+    the JAX launcher's ``main`` on the same command line."""
+    from repro.launch import serve_assist as jserve_assist
+    monkeypatch.setattr(sys, "argv", ["serve_assist", "--out",
+                                      str(tmp_path / "jax")] + argv)
+    jserve_assist.main()
+    want = _fleet_counters(capsys.readouterr().out)
+    assert serve_assist.main(["--device", "cpu", "--out",
+                              str(tmp_path / "port")] + argv) == 0
+    out = capsys.readouterr().out
+    assert _fleet_counters(out) == want
+    assert "final suggestions" not in out        # the fleet path only
+    if "--kill-leader-at" in argv:
+        assert want[:2] == ("2", "1") and "KILLED mid-segment" in out
+    if "--kill-follower-at" in argv:
+        assert want[1] == "1" and "follower 1 killed" in out
+    if "--compact-every" in argv:
+        assert want[5] == "2" and want[6] == "8"
 
 
 @pytest.mark.parametrize("argv", [
