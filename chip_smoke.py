@@ -7,6 +7,7 @@
     python3 chip_smoke.py --flash-crowd-only
     python3 chip_smoke.py --tune-only
     python3 chip_smoke.py --fleet-only
+    python3 chip_smoke.py --sharded-only
 
 Phases, each of which must pass:
 
@@ -216,7 +217,43 @@ Phases, each of which must pass:
      --kill-leader-at 7 --kill-follower-at 12 --workload firehose
      --spike-at 6 --compact-every 8 --keep-bases 2 --ticks 24`` at the
      launcher's own settings, whose ``[done] fleet:`` line must report 2
-     failovers, 2 recoveries, 0 lost ticks and a compaction.
+     failovers, 2 recoveries, 0 lost ticks and a compaction;
+ 12. the sharded engine on one card — ``core/sharded_engine.py`` with 8
+     shards at the hash cell's widths (query store 2^22, cooc 2^24 and
+     sessions 2^20 in all, ``ShardedConfig`` defaults) over the engine
+     cell's query hose (16,384 queries a tick, no tweets, seed 0); every
+     part must show 0 route drops. (a) hash layout, sweep policy, 17
+     ticks through ``make_sharded_tick_step``, ranked at ticks 8 and 16,
+     against the unsharded engine on the same ticks (``ingest_quantum``
+     0: both ingest a tick whole): the query store bit for bit, equal
+     merged key sets, and top-3 scores within rtol 5e-3, atol 1e-4 for
+     every source whose pairs each live in one shard; a source that
+     crossed ``hot_threshold`` mid-run holds some pairs in two shards
+     (the JAX engine's salting), and those sources are counted and
+     printed, not held; ``export_sharded_pairs`` against ``export_live``
+     (keys on one side, prune flips, weight difference) printed; (b) hash
+     layout, lazy policy: a live run of 17 ticks against a crash after
+     tick 8 with delta-chained snapshots (full at 4, delta at 8), restored
+     and replayed through ``make_sharded_ingest_many``: every leaf bit for
+     bit the live run's; (c) region layout, sweep policy: 8 shards to tick
+     12 with the port's firehose log, the old state serving ticks 12-13
+     while ``distributed/elastic.live_reshard`` splits it to 16 shards and
+     replays them: equal merged key sets, no source's top score lower;
+     then a merge back to 8 with equal key sets. Then each kernel of the
+     path against its plain version at one shard's shapes:
+     ``decay_prune_multi`` at a shard's cooc capacity, ``score_gate`` and
+     ``bucket_topk`` on shard 0's rank-cycle inputs, ``region_rank`` and
+     the chain merge's ``bucket_topk`` on the region state's shard 0, and
+     ``chain_find`` on the largest batch of one more region tick. Printed
+     with the card's name and power limit: ms per sharded tick (p50, max)
+     and per rank cycle, live slots and sessions per shard, peak memory,
+     each part's launches (counts set to 0 just before it, the unsharded
+     reference's not counted; ``decay_prune_multi``, ``score_gate``,
+     ``bucket_topk``, ``region_rank`` and ``chain_find`` must each be
+     above 0), the snapshots' ms and bytes, restore and replay ms, the
+     replay's multiple of a 10-s tick and the time to fresh, and the
+     reshard's wall split (export, fill, replay), pairs, sessions and
+     drops.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -234,7 +271,8 @@ times ``score_gate``'s and ``assoc_score``'s bare launches on the
 synthetic lanes and on the lanes its last rank cycle gave ``score_gate``.
 ``--flash-crowd-only`` builds the kernels and runs phase 9 alone;
 ``--tune-only`` builds them and runs phase 10 alone; ``--fleet-only``
-builds them and runs phase 11 alone.
+builds them and runs phase 11 alone; ``--sharded-only`` builds them and
+runs phase 12 alone.
 ``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
 DIR lies inside this checkout (a parent commit unpacked with ``git
 archive`` under ``build/``), so one call on one card profiles two trees.
@@ -852,13 +890,14 @@ def check_region_rank(R: int, W: int, K: int, dev, floor):
                 score_floor_ms=floor_ms(floor, bnd[None][0]))
 
 
-def check_region_rank_path_grid(call, tick, floor):
+def check_region_rank_path_grid(call, tick, floor, label=None):
     """region_rank's two routes on the grid the region path's rank cycle of
-    ``tick`` passed it (an untimed replay): the live and passing slots, each
-    route against the plain version, both timed against the bytes that data
-    needs (:func:`region_rank_bound`) and against a yardstick that reads
-    the base gate byte of every slot, 16 B for each live slot, and each
-    row's two marginals, K values, K columns and npass."""
+    ``tick`` passed it (an untimed replay; ``label`` names another grid):
+    the live and passing slots, each route against the plain version, both
+    timed against the bytes that data needs (:func:`region_rank_bound`)
+    and against a yardstick that reads the base gate byte of every slot,
+    16 B for each live slot, and each row's two marginals, K values, K
+    columns and npass."""
     a, kw = call
     w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c = a
     if kw.get("decay_cfg") is not None:
@@ -870,7 +909,7 @@ def check_region_rank_path_grid(call, tick, floor):
                  min_pair_count=kw["min_pair_count"])
     lanes = (w_ab, c_ab, w_a, w_b, c_a, c_b)
     sc = [total_w, total_c, total_w.new_zeros(())]
-    label = f"region path grid, tick {tick}"
+    label = label or f"region path grid, tick {tick}"
     err, bufs, en = region_rank_routes(label, lanes, ok, None, sc, K, None,
                                        gates, kw["coefs"])
     ms = time_region_rank_routes(lanes, ok, None, sc, None, gates,
@@ -3687,6 +3726,582 @@ def run_fleet(dev, card: str):
     return {n: chaos_launches[n] + cli_launches[n] for n in chaos_launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the sharded engine on one card.
+# ---------------------------------------------------------------------------
+
+# The hash cell's widths under ShardedConfig's defaults (4 salts, hot at a
+# count of 50, 4,096 pairs a bucket), 8 shards, over the engine cell's
+# query hose (16,384 queries a tick, no tweets: the sharded engine ingests
+# the query hose only). A shard sends at most 16,384 x 4 / 8 = 8,192
+# pairs a tick, ~1,024 a bucket. The sharded engine ingests a tick whole,
+# as the JAX one does, so the unsharded engine it is held against takes
+# ingest_quantum 0.
+SHARDED_N = 8
+SHARDED_TICKS = 17
+SHARDED_RANK_AT = (8, 16)
+SHARDED_SNAPSHOT_AT = (4, 8)   # (b): full, then delta; the crash after 8
+SHARDED_SPLIT_AT = 12          # (c): the old state serves ticks 12-13
+SHARDED_KERNELS = {"hash": ("decay_prune_multi", "score_gate", "bucket_topk"),
+                   "region": ("region_rank", "chain_find", "bucket_topk")}
+
+
+def sharded_config(layout="hash", lazy=False):
+    """(ShardedConfig, StreamConfig) of phase 12."""
+    from repro_torch.core.decay import DecayConfig
+    from repro_torch.core.sharded_engine import ShardedConfig
+    cfg, scfg = deployment_config(layout)
+    kw = dict(decay=DecayConfig(policy="lazy"), prune_every=8) if lazy else {}
+    return (ShardedConfig(base=dataclasses.replace(cfg, ingest_quantum=0,
+                                                   **kw)),
+            dataclasses.replace(scfg, tweets_per_tick=0))
+
+
+def sharded_events(stream_cfg, n_ticks):
+    from repro_torch.data.stream import SyntheticStream
+    stream = SyntheticStream(stream_cfg, seed=SEED)
+    return [stream.gen_tick(t)[0] for t in range(n_ticks)]
+
+
+def hose(ev):
+    """One tick's query hose as the sharded steps take it (host lanes)."""
+    import numpy as np
+    from repro_torch.core.hashing import split_fp
+    s_hi, s_lo = split_fp(ev.sess_fp)
+    q_hi, q_lo = split_fp(ev.q_fp)
+    return s_hi, s_lo, q_hi, q_lo, np.asarray(ev.src, np.int32), \
+        np.asarray(ev.valid, bool)
+
+
+def _synced_ms(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def fragmented_sources(state):
+    """Sources (fp64) with a (src, dst) pair held by more than one hash
+    shard: the pairs a source salted after it crossed hot_threshold live
+    apart from its earlier ones, and the merge takes their max."""
+    import numpy as np
+    from repro_torch.core.hashing import join_fp
+    from repro_torch.core.stores import export_live
+    src, dst = [], []
+    for c in state.cooc:
+        e = export_live(c)
+        src.append(join_fp(e["src_hi"], e["src_lo"]))
+        dst.append(join_fp(e["dst_hi"], e["dst_lo"]))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    order = np.lexsort((dst, src))
+    s, d = src[order], dst[order]
+    dup = (s[1:] == s[:-1]) & (d[1:] == d[:-1])
+    return set(s[1:][dup].tolist())
+
+
+def capped_sources(coocs, qstore, rank_cfg):
+    """Sources (fp64) with more than ``bucket_rows`` gate-passing rows in
+    one hash store, by the rank cycle's own score and gate: the bucket
+    arena keeps their coarse-score best (``core/reference.py``'s capped
+    sources). Its ``score_gate`` launches are taken back out of the
+    counts."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core import ranking
+    from repro_torch.core.hashing import u32
+    L = max(rank_cfg.bucket_rows, rank_cfg.top_k)
+    before = dict(tk.LAUNCHES)
+    out = set()
+    for c in coocs:
+        _, ok, _, (s_hi, s_lo, _, _) = ranking._score_and_gate(
+            c, qstore, rank_cfg, None, None)
+        key = (u32(s_hi[ok]) << 32) | u32(s_lo[ok])
+        uniq, cnt = torch.unique(key, return_counts=True)
+        out |= {k & (2**64 - 1) for k in uniq[cnt > L].tolist()}
+    tk.LAUNCHES.update(before)
+    return out
+
+
+def hold_sharded_suggestions(merged, ref, fragmented, capped, label):
+    """Equal key sets; top-3 scores within rtol 5e-3, atol 1e-4 for every
+    source neither fragmented nor capped (on either side); those two
+    counted apart, with how many leave the contract and the worst relative
+    difference of their top-3 scores."""
+    import numpy as np
+    if set(merged) != set(ref) or not merged:
+        raise AssertionError(f"sharded {label}: {len(merged)} sources, the "
+                             f"unsharded engine {len(ref)}")
+    held = 0
+    apart = {"fragmented": [0, 0, 0.0], "capped": [0, 0, 0.0]}
+    for f in merged:
+        ms = sorted((s for _, s in merged[f]), reverse=True)[:3]
+        rs = sorted((s for _, s in ref[f]), reverse=True)[:3]
+        ok = len(ms) == len(rs) and np.allclose(ms, rs, rtol=5e-3, atol=1e-4)
+        why = ("fragmented" if f in fragmented
+               else "capped" if f in capped else None)
+        if why is None:
+            if not ok:
+                raise AssertionError(f"sharded {label}: source {f} top-3 "
+                                     f"{ms}, unsharded {rs}")
+            held += 1
+            continue
+        n = apart[why]
+        n[0] += 1
+        n[1] += not ok
+        if len(ms) == len(rs):
+            n[2] = max(n[2], float(np.max(np.abs(np.subtract(ms, rs))
+                                          / np.abs(rs))))
+    return dict(sources=len(merged), held=held, **{
+        f"{k}{sfx}": v[i] for k, v in apart.items()
+        for i, sfx in enumerate(("", "_off", "_worst_rel"))})
+
+
+def pair_difference(pairs, exp, threshold):
+    """export_sharded_pairs against the unsharded export_live: keys on one
+    side only, those within 2e-3 of the prune threshold (prune flips), and
+    the largest relative weight difference over the common keys."""
+    import numpy as np
+    from repro_torch.core.hashing import join_fp
+
+    def keyed(e):
+        k = np.stack([join_fp(e["src_hi"], e["src_lo"]),
+                      join_fp(e["dst_hi"], e["dst_lo"])], 1)
+        return np.ascontiguousarray(k).view([("s", "u8"), ("d", "u8")]) \
+            .ravel(), e["weight"]
+
+    ka, wa = keyed(pairs)
+    kb, wb = keyed(exp)
+    common, ia, ib = np.intersect1d(ka, kb, return_indices=True)
+    only_a = np.setdiff1d(np.arange(ka.size), ia)
+    only_b = np.setdiff1d(np.arange(kb.size), ib)
+    near = lambda w: int((np.abs(w - threshold) <= 2e-3 * threshold).sum())
+    rel = np.abs(wa[ia] - wb[ib]) / np.maximum(np.abs(wb[ib]), 1e-30)
+    return dict(sharded=int(ka.size), unsharded=int(kb.size),
+                common=int(common.size), sharded_only=int(only_a.size),
+                unsharded_only=int(only_b.size),
+                prune_flips=near(wa[only_a]) + near(wb[only_b]),
+                max_rel_weight_diff=float(rel.max()) if rel.size else 0.0,
+                common_weight_exact=int((wa[ia] == wb[ib]).sum()))
+
+
+def sharded_hash(dev, card):
+    """Phase 12(a): the sharded hash path against the unsharded engine.
+    Returns (launches, report, final state)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core import sharded_engine as se
+    from repro_torch.core.engine import SearchAssistanceEngine, table_leaves
+    from repro_torch.core.stores import export_live
+    scfg, stream_cfg = sharded_config("hash")
+    cfg, n = scfg.base, SHARDED_N
+    events = sharded_events(stream_cfg, SHARDED_TICKS)
+    step = se.make_sharded_tick_step(scfg, n, dev)
+    rank = se.make_sharded_rank(scfg, n, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = se.init_sharded_state(scfg, n, dev)
+    tick_ms, rank_ms, merged, overflow, frag, capped = [], {}, {}, {}, {}, {}
+    tk.reset_launches()
+    for t, ev in enumerate(events):
+        state, ms = _synced_ms(lambda: step(state, *hose(ev)))
+        tick_ms.append(ms)
+        if t in SHARDED_RANK_AT:
+            table, rank_ms[t] = _synced_ms(lambda: rank(state))
+            # read between the timed spans, so outside them
+            merged[t] = se.merge_sharded_suggestions(table, cfg.rank.top_k)
+            overflow[t] = table.n_overflow.tolist()
+            frag[t] = fragmented_sources(state)
+            capped[t] = capped_sources(state.cooc, state.qstore, cfg.rank)
+            del table
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    drops = state.n_route_drop.tolist()
+    if any(drops):
+        raise AssertionError(f"sharded hash: route drops {drops}")
+    missing = [k for k in SHARDED_KERNELS["hash"] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"sharded hash: kernels not launched {missing}")
+
+    # the unsharded engine on the same ticks (its launches not counted)
+    eng = SearchAssistanceEngine(cfg, device=dev)
+    held = {}
+    for t, ev in enumerate(events):
+        eng.step(ev, None)
+        if t in SHARDED_RANK_AT:
+            capped[t] |= capped_sources([eng.state.cooc], eng.state.qstore,
+                                        cfg.rank)
+            held[t] = hold_sharded_suggestions(merged[t], eng.suggestions,
+                                               frag[t], capped[t],
+                                               f"tick {t}")
+    for x, y in zip(table_leaves(state.qstore), table_leaves(eng.state.qstore)):
+        if not torch.equal(x[0], y[0]):
+            raise AssertionError("sharded hash: the query store differs from "
+                                 "the unsharded engine's")
+    pairs = se.export_sharded_pairs(scfg, state)
+    diff = pair_difference(pairs, export_live(eng.state.cooc),
+                           cfg.decay.prune_threshold)
+    del eng
+    report = {
+        "card": card, "shards": n, "ticks": SHARDED_TICKS,
+        "queries_per_tick": stream_cfg.queries_per_tick,
+        "route_drop": drops,
+        "tick_ms": _ms_stats(tick_ms), "tick_ms_all": tick_ms,
+        "rank_ms": rank_ms, "rank_overflow": overflow,
+        "cooc_live_per_shard": [int(c.live_count()) for c in state.cooc],
+        "cooc_dropped_per_shard": [int(c.n_dropped) for c in state.cooc],
+        "sessions_live_per_shard": [
+            int(((s.key_hi != 0) | (s.key_lo != 0)).sum())
+            for s in state.sessions],
+        "qstore_live": int(state.qstore.live_count()),
+        "peak_gib": peak, "suggestions": held, "pairs": diff,
+        "launches": {k: v for k, v in launches.items() if v}}
+    return launches, report, state
+
+
+def sharded_replay(dev, card):
+    """Phase 12(b): the lazy hash path live against a crash after tick 8,
+    delta-chained snapshots, restore and replay. Returns (launches,
+    report)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core import sharded_engine as se
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    scfg, stream_cfg = sharded_config("hash", lazy=True)
+    n = SHARDED_N
+    events = sharded_events(stream_cfg, SHARDED_TICKS)
+    step = se.make_sharded_tick_step(scfg, n, dev)
+    many = se.make_sharded_ingest_many(scfg, n, dev)
+    rank = se.make_sharded_rank(scfg, n, dev)
+    crash = SHARDED_SNAPSHOT_AT[-1]
+    tk.reset_launches()
+    live = se.init_sharded_state(scfg, n, dev)
+    for ev in events:
+        live = step(live, *hose(ev))
+    saves = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        ckpt = CheckpointManager(tmp, full_interval=4)
+        half = se.init_sharded_state(scfg, n, dev)
+        for t, ev in enumerate(events[:crash]):
+            half = step(half, *hose(ev))
+            if t + 1 in SHARDED_SNAPSHOT_AT:
+                _, ms = _synced_ms(lambda: se.save_sharded_snapshot(half,
+                                                                    ckpt))
+                saves.append({"tick": t + 1, "kind": ckpt.last_save_kind,
+                              "bytes": ckpt.last_save_bytes,
+                              "raw_bytes": ckpt.last_save_raw_bytes,
+                              "ms": ms, "split_ms": ckpt.last_save_ms})
+        del half                                   # the crash
+        torch.cuda.empty_cache()
+        (restored, log_tick), restore_ms = _synced_ms(
+            lambda: se.restore_sharded_snapshot(scfg, n, ckpt, device=dev))
+        restore_split = ckpt.last_restore_ms
+    if log_tick != crash or [x["kind"] for x in saves] != ["full", "delta"]:
+        raise AssertionError(f"sharded replay: log tick {log_tick}, saves "
+                             f"{[x['kind'] for x in saves]}")
+    tail = tuple(np.stack(x) for x in zip(*map(hose, events[crash:])))
+    caught_up, replay_ms = _synced_ms(lambda: many(restored, *tail))
+    _, rank_ms = _synced_ms(lambda: rank(caught_up))
+    launches = dict(tk.LAUNCHES)
+    for i, ((a, _), (b, _)) in enumerate(zip(se.sharded_leaves(live),
+                                             se.sharded_leaves(caught_up))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sharded replay: leaf {i} differs from the "
+                                 f"live run's")
+    drops = live.n_route_drop.tolist()
+    if any(drops):
+        raise AssertionError(f"sharded replay: route drops {drops}")
+    n_replayed = SHARDED_TICKS - crash
+    per_tick = replay_ms / n_replayed
+    return launches, {
+        "card": card, "crash_after_tick": crash, "saves": saves,
+        "restore_ms": restore_ms, "restore_split_ms": restore_split,
+        "ticks_replayed": n_replayed, "replay_ms": replay_ms,
+        "replay_ms_per_tick": per_tick,
+        "replay_multiple_of_10s_tick": 1e4 / per_tick,
+        "handoff_rank_ms": rank_ms,
+        "time_to_fresh_ms": restore_ms + replay_ms + rank_ms,
+        "leaves": len(se.sharded_leaves(live)), "route_drop": drops,
+        "launches": {k: v for k, v in launches.items() if v}}
+
+
+def sharded_split_merge(dev, card):
+    """Phase 12(c): the region path split 8 -> 16 live and merged back.
+    Returns (launches, report, the old 8-shard state)."""
+    import tempfile
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core import sharded_engine as se
+    from repro_torch.distributed import elastic
+    from repro_torch.streaming.log import FirehoseLogWriter
+    scfg, stream_cfg = sharded_config("region")
+    cfg, n = scfg.base, SHARDED_N
+    events = sharded_events(stream_cfg, SHARDED_SPLIT_AT + 2)
+    step = se.make_sharded_tick_step(scfg, n, dev)
+    rank = {k: se.make_sharded_rank(scfg, k, dev) for k in (n, 2 * n)}
+    split = {"export_ms": 0.0, "fill_ms": 0.0}
+    timed = {}
+
+    def timer(name, key):
+        fn = getattr(se, name)
+
+        def wrapped(*a, **kw):
+            out, ms = _synced_ms(lambda: fn(*a, **kw))
+            split[key] += ms
+            return out
+        timed[name] = fn
+        setattr(se, name, wrapped)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reshard_") as tmp:
+        writer = FirehoseLogWriter(tmp, ticks_per_segment=4)
+        st = se.init_sharded_state(scfg, n, dev)
+        tick_ms = []
+        for t, ev in enumerate(events[:SHARDED_SPLIT_AT]):
+            writer.append(t, ev, None)
+            st, ms = _synced_ms(lambda: step(st, *hose(ev)))
+            tick_ms.append(ms)
+        old = se.clone_sharded_state(st)
+        for t in range(SHARDED_SPLIT_AT, SHARDED_SPLIT_AT + 2):
+            writer.append(t, events[t], None)      # the old state serves
+            old = step(old, *hose(events[t]))      # the window's ticks
+        writer.close()
+        for name, key in (("export_sharded_pairs", "export_ms"),
+                          ("export_sharded_sessions", "export_ms"),
+                          ("_fill_cooc_shard", "fill_ms"),
+                          ("_fill_session_shard", "fill_ms")):
+            timer(name, key)
+        make_many = elastic.make_sharded_ingest_many
+
+        def timed_many(*a, **kw):
+            many = make_many(*a, **kw)
+
+            def replay(*b):
+                out, ms = _synced_ms(lambda: many(*b))
+                split["replay_ms"] += ms
+                return out
+            return replay
+
+        split["replay_ms"] = 0.0
+        elastic.make_sharded_ingest_many = timed_many
+        try:
+            (new, stats), wall = _synced_ms(lambda: elastic.live_reshard(
+                scfg, st, 2 * n, 2 * n, log_dir=tmp, chunk_ticks=8,
+                device=dev))
+        finally:
+            elastic.make_sharded_ingest_many = make_many
+            for name, fn in timed.items():
+                setattr(se, name, fn)
+        del st
+        split["wall_ms"] = wall
+        split["other_ms"] = wall - sum(split[k] for k in (
+            "export_ms", "fill_ms", "replay_ms"))
+        m_old = se.merge_sharded_suggestions(rank[n](old), cfg.rank.top_k)
+        m_new = se.merge_sharded_suggestions(rank[2 * n](new),
+                                             cfg.rank.top_k)
+        (merged, mstats), merge_ms = _synced_ms(lambda: elastic.live_reshard(
+            scfg, new, n, n, log_dir=tmp, device=dev))
+        m_back = se.merge_sharded_suggestions(rank[n](merged), cfg.rank.top_k)
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    top = lambda m: {f: max(s for _, s in v) for f, v in m.items() if v}
+    t_old, t_new = top(m_old), top(m_new)
+    fell = [f for f in t_old if t_new[f] < t_old[f] - 1e-5]
+    if (stats["replayed_ticks"] != 2 or int(new.tick) != int(old.tick)
+            or not m_old or set(m_new) != set(m_old) or fell
+            or set(m_back) != set(m_new) or mstats["replayed_ticks"] != 0):
+        raise AssertionError(f"sharded split/merge: {stats}, {mstats}, "
+                             f"{len(m_old)}/{len(m_new)}/{len(m_back)} "
+                             f"sources, {len(fell)} top scores fell")
+    drops = {"old": old.n_route_drop.tolist(),
+             "split": new.n_route_drop.tolist(),
+             "merged": merged.n_route_drop.tolist()}
+    if any(x for v in drops.values() for x in v):
+        raise AssertionError(f"sharded split/merge: route drops {drops}")
+    missing = [k for k in SHARDED_KERNELS["region"] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"sharded region: kernels not launched {missing}")
+    pressure = elastic.sharded_pressure(old, cfg)
+    report = {
+        "card": card, "shards": [n, 2 * n, n], "split_at": SHARDED_SPLIT_AT,
+        "tick_ms": _ms_stats(tick_ms), "split": stats, "split_ms": split,
+        "merge": mstats, "merge_ms": merge_ms,
+        "sources": [len(m_old), len(m_new), len(m_back)],
+        "top_score_rose": sum(t_new[f] > t_old[f] + 1e-5 for f in t_old),
+        "route_drop": drops,
+        "cooc_dropped_per_shard": {
+            "old": [int(c.n_dropped) for c in old.cooc],
+            "split": [int(c.n_dropped) for c in new.cooc]},
+        "free_regions_per_shard": {
+            "old": [int(c.free_regions()) for c in old.cooc],
+            "split": [int(c.free_regions()) for c in new.cooc]},
+        "pressure": pressure, "peak_gib": peak,
+        "launches": {k: v for k, v in launches.items() if v}}
+    del new, merged
+    return launches, report, old
+
+
+def sharded_path_kernels(dev, hash_state, region_state, floor):
+    """Each kernel of the sharded paths against its plain version at one
+    shard's shapes (after the phase's counts were read)."""
+    import torch
+    from repro_torch.core import ranking
+    from repro_torch.core import sharded_engine as se
+    from repro_torch.kernels import ops as kops
+    scfg, _ = sharded_config("hash")
+    C = scfg.base.cooc_capacity // SHARDED_N
+    row = check_decay_prune(C, 6, dev)
+    log(f"  decay_prune_multi at a hash shard's cooc (C={C}, 9 lanes): "
+        f"{json.dumps(row)}")
+    keep = {}
+    spied = {"score_gate": kops.score_gate, "bucket_topk": kops.bucket_topk,
+             "region_rank": kops.region_rank, "chain_find": kops.chain_find}
+
+    def spy(name):
+        def fn(*a, **kw):
+            if name == "chain_find":
+                n_act = int(a[5].sum())
+                if n_act > keep.get("chain_find_active", -1):
+                    keep["chain_find_active"] = n_act
+                    keep["chain_find"] = (a[0].data_ptr(), tuple(
+                        t.clone() for t in a[2:]))
+            else:
+                keep[name] = (tuple(t.clone() if torch.is_tensor(t) else t
+                                    for t in a), dict(kw))
+            return spied[name](*a, **kw)
+        return fn
+
+    for name in spied:
+        setattr(kops, name, spy(name))
+    try:
+        ranking.ranking_cycle(hash_state.cooc[0], hash_state.qstore,
+                              scfg.base.rank)
+        hash_grid = keep.pop("bucket_topk")
+        rcfg, stream_cfg = sharded_config("region")
+        ranking.ranking_cycle_region(region_state.cooc[0], region_state.qstore,
+                                     rcfg.base.rank)
+        rt = int(region_state.tick) - 1
+        step = se.make_sharded_tick_step(rcfg, SHARDED_N, dev)
+        ev = sharded_events(stream_cfg, SHARDED_SPLIT_AT + 3)[-1]
+        region_state = step(region_state, *hose(ev))
+    finally:
+        for name, fn in spied.items():
+            setattr(kops, name, fn)
+    tick = int(hash_state.tick) - 1
+    sg = check_score_path_lanes(
+        keep["score_gate"], tick, floor,
+        label=f"sharded hash shard 0 of {SHARDED_N} lanes, tick {tick}")
+    (grid, k), _ = hash_grid
+    tk_hash = check_bucket_topk_path_grid(
+        f"sharded hash shard 0 bucket grid, tick {tick}", grid, k)
+    rr = check_region_rank_path_grid(
+        keep["region_rank"], rt, floor,
+        label=f"sharded region shard 0 of {SHARDED_N} grid, tick {rt}")
+    (grid, k), _ = keep["bucket_topk"]
+    tk_region = check_bucket_topk_path_grid(
+        f"sharded region shard 0 chain-merge candidates, tick {rt}", grid, k)
+    ptr, batch = keep["chain_find"]
+    (table,) = [c for c in region_state.cooc if c.key_hi.data_ptr() == ptr]
+    cf = check_chain_find_batch(table, batch)
+    return {"decay_prune_multi": row, "score_gate": sg["score_gate"],
+            "bucket_topk_hash": tk_hash, "region_rank": rr,
+            "bucket_topk_region": tk_region, "chain_find": cf}
+
+
+def run_sharded(dev, card: str, floor):
+    """Phase 12: (a), (b), (c), then the kernels at one shard's shapes.
+    Returns the phase's launch counts ((a) + (b) + (c))."""
+    import torch
+    t_phase = time.perf_counter()
+    scfg, stream_cfg = sharded_config("hash")
+    log(f"[12] the sharded engine ({card}): {SHARDED_N} shards, "
+        f"{scfg.n_salts} salts, hot at "
+        f"{scfg.hot_threshold}, {scfg.route_capacity} pairs a bucket; "
+        f"{stream_cfg.queries_per_tick} queries a tick, no tweets")
+    t0 = time.perf_counter()
+    la, rep_a, hash_state = sharded_hash(dev, card)
+    rep_a["wall_s"] = time.perf_counter() - t0
+    log(f"[12] sharded hash vs unsharded ({card}): " + json.dumps(
+        {k: v for k, v in rep_a.items() if k != "tick_ms_all"}))
+    st = rep_a["tick_ms"]
+    log(f"  sharded hash ({card}): ms per sharded tick p50 {st['p50']:.3f}, "
+        f"max {st['max']:.3f} (n {st['n']}); rank cycle over "
+        f"{SHARDED_N} shards " + ", ".join(
+            f"tick {t}: {ms:.3f} ms" for t, ms in rep_a["rank_ms"].items())
+        + f"; peak {rep_a['peak_gib']:.3f} GiB; route drops "
+        f"{rep_a['route_drop']}")
+    for t, h in rep_a["suggestions"].items():
+        log(f"  sharded hash, tick {t}: {h['sources']} sources, key sets "
+            f"equal; {h['held']} held to the top-3 contract; "
+            f"{h['fragmented']} hold a pair in two shards (salted after "
+            f"crossing hot_threshold), {h['fragmented_off']} of them off "
+            f"the contract, worst top-3 relative difference "
+            f"{h['fragmented_worst_rel']!r}; {h['capped']} more have over "
+            f"bucket_rows gate-passing rows in a store of either engine, "
+            f"{h['capped_off']} of them off, worst "
+            f"{h['capped_worst_rel']!r}")
+    p = rep_a["pairs"]
+    log(f"  sharded hash: export_sharded_pairs {p['sharded']} pairs, "
+        f"export_live {p['unsharded']}; {p['sharded_only']} keys on the "
+        f"sharded side only, {p['unsharded_only']} on the unsharded side "
+        f"only, {p['prune_flips']} of them prune flips; max relative weight "
+        f"difference {p['max_rel_weight_diff']!r} "
+        f"({p['common_weight_exact']} of {p['common']} equal); the query "
+        f"store bit for bit the unsharded engine's")
+    log(f"  sharded hash: live slots per shard {rep_a['cooc_live_per_shard']}"
+        f", sessions per shard {rep_a['sessions_live_per_shard']}, launches "
+        f"{rep_a['launches']}; took {rep_a['wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lb, rep_b = sharded_replay(dev, card)
+    rep_b["wall_s"] = time.perf_counter() - t0
+    log(f"[12] sharded replay, lazy policy ({card}): " + json.dumps(rep_b))
+    log(f"  sharded replay ({card}): saves " + "; ".join(
+        f"tick {x['tick']} {x['kind']} {x['bytes']} B ({x['raw_bytes']} raw)"
+        f" {x['ms']:.3f} ms" for x in rep_b["saves"])
+        + f"; restore {rep_b['restore_ms']:.3f} ms; replay "
+        f"{rep_b['ticks_replayed']} ticks {rep_b['replay_ms']:.3f} ms "
+        f"({rep_b['replay_ms_per_tick']:.3f} ms a tick, "
+        f"{rep_b['replay_multiple_of_10s_tick']:.1f}x a 10-s tick); handoff "
+        f"rank {rep_b['handoff_rank_ms']:.3f} ms; time to fresh "
+        f"{rep_b['time_to_fresh_ms']:.3f} ms; all {rep_b['leaves']} leaves "
+        f"bit for bit the live run's; took {rep_b['wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lc, rep_c, region_state = sharded_split_merge(dev, card)
+    rep_c["wall_s"] = time.perf_counter() - t0
+    log(f"[12] sharded split and merge, region layout ({card}): "
+        + json.dumps(rep_c))
+    s, sp = rep_c["split"], rep_c["split_ms"]
+    log(f"  sharded split 8 -> 16 at tick {rep_c['split_at']} ({card}): "
+        f"wall {sp['wall_ms']:.3f} ms = export {sp['export_ms']:.3f} + fill "
+        f"{sp['fill_ms']:.3f} + replay of {s['replayed_ticks']} ticks "
+        f"{sp['replay_ms']:.3f} + ownership and the query store's copy "
+        f"{sp['other_ms']:.3f}; {s['n_pairs']} pairs, {s['n_sessions']} "
+        f"sessions, {s['n_pair_drop']} pair and {s['n_sess_drop']} session "
+        f"drops; merge 16 -> 8 {rep_c['merge_ms']:.3f} ms "
+        f"({rep_c['merge']['n_pairs']} pairs); sources "
+        f"{rep_c['sources']} (key sets equal, no top score lower, "
+        f"{rep_c['top_score_rose']} higher); launches {rep_c['launches']}; "
+        f"took {rep_c['wall_s']:.1f} s")
+    log("[12] kernels at one shard's shapes")
+    t0 = time.perf_counter()
+    rows = sharded_path_kernels(dev, hash_state, region_state, floor)
+    del hash_state, region_state
+    torch.cuda.empty_cache()
+    log(f"  sharded path kernels: " + json.dumps(
+        {k: {x: y for x, y in v.items() if not isinstance(y, (dict, list))}
+         for k, v in rows.items()}) + f"; took {time.perf_counter() - t0:.1f} s")
+    log(f"  sharded phase took {time.perf_counter() - t_phase:.1f} s")
+    return {k: la[k] + lb[k] + lc[k] for k in la}
+
+
 def profile_region() -> None:
     """The region cell's 17 ticks, then one more ingest tick and one rank
     cycle under the profiler, on the ``repro_torch`` package on the path."""
@@ -3766,6 +4381,9 @@ def main() -> int:
     ap.add_argument("--fleet-only", action="store_true",
                     help="build the kernels and run phase 11 (the "
                          "replicated fleet), and nothing else")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="build the kernels and run phase 12 (the sharded "
+                         "engine), and nothing else")
     ap.add_argument("--root", default=str(ROOT),
                     help="with --profile-region-only or --profile-hash-only:"
                          " a directory inside this checkout whose "
@@ -3800,7 +4418,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     t_start = time.perf_counter()
-    if args.flash_crowd_only or args.tune_only or args.fleet_only:
+    if (args.flash_crowd_only or args.tune_only or args.fleet_only
+            or args.sharded_only):
         log(f"[1] card: {card} | torch {torch.__version__} cuda "
             f"{torch.version.cuda}")
         for stem in build.build_all():
@@ -3811,6 +4430,8 @@ def main() -> int:
             run_tuning(dev, card)
         if args.fleet_only:
             run_fleet(dev, card)
+        if args.sharded_only:
+            run_sharded(dev, card, score_floor())
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3964,6 +4585,10 @@ def main() -> int:
 
     # ---- 11. the self-healing replicated fleet ----
     launches["fleet"] = run_fleet(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 12. the sharded engine ----
+    launches["sharded"] = run_sharded(dev, card, floor)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

@@ -112,14 +112,18 @@ _COOC_LANES = {"weight": torch.float32, "count": torch.float32,
                "dst_hi": U32, "dst_lo": U32}
 
 
-def make_cooc_store(cfg: EngineConfig, device="cuda"):
+def make_cooc_store(cfg: EngineConfig, capacity: Optional[int] = None,
+                    device="cuda"):
     """The cooccurrence store under ``cfg.cooc_layout`` (on CUDA unless
-    ``device`` names another device; raises where CUDA is absent)."""
+    ``device`` names another device; raises where CUDA is absent).
+    ``capacity`` overrides ``cfg.cooc_capacity`` (the sharded engine
+    divides it among its shards)."""
+    cap = capacity if capacity is not None else cfg.cooc_capacity
     if cfg.region_cooc:
         return stores.make_region_table(
-            cfg.cooc_capacity, cfg.region_w, cfg.query_capacity,
-            cfg.region_chain, _QSTORE_LANES, device)
-    return stores.make_table(cfg.cooc_capacity, _COOC_LANES, device)
+            cap, cfg.region_w, cfg.query_capacity, cfg.region_chain,
+            _QSTORE_LANES, device)
+    return stores.make_table(cap, _COOC_LANES, device)
 
 
 def init_state(cfg: EngineConfig, device="cuda") -> EngineState:
@@ -128,7 +132,7 @@ def init_state(cfg: EngineConfig, device="cuda") -> EngineState:
     device = stores.resolve_device(device)
     return EngineState(
         stores.make_table(cfg.query_capacity, _QSTORE_LANES, device),
-        make_cooc_store(cfg, device),
+        make_cooc_store(cfg, device=device),
         stores.make_session_table(cfg.session_capacity, cfg.session_window,
                                   device),
         torch.zeros((), dtype=torch.int32, device=device))
@@ -339,20 +343,40 @@ def cadence_due(cfg: EngineConfig, tick: int) -> Optional[str]:
     return None
 
 
+def maintenance_cadence(state, tick, cfg: EngineConfig, prune_fn, evict_fn,
+                        decay_fn):
+    """Run the branch :func:`cadence_due` names at ``tick`` (an int or a
+    0-d tensor) on ``state`` and return what it returns; ``state`` as it
+    was when no cycle is due. The dispatch shared by the unsharded and the
+    sharded engines (the JAX package's traced twin of the same name), so
+    one statement of the cadence serves both."""
+    due = cadence_due(cfg, int(tick))
+    fn = {"prune": prune_fn, "evict": evict_fn, "decay": decay_fn}.get(due)
+    return state if fn is None else fn(state)
+
+
 def tick_maintenance(state: EngineState, cfg: EngineConfig,
                      tick: int) -> Tuple[EngineState, Optional[str], dict]:
     """Run the maintenance cycle due at ``tick`` (if any): the one
     statement of it, shared by ``step`` and ``ingest_many``. Returns
     (state, cycle name or None, stats)."""
-    due = cadence_due(cfg, tick)
     stats: dict = {}
-    if due == "evict":
-        state = evict_sessions_cycle(state, cfg=cfg)
-    elif due == "prune":   # prune_cycle evicts sessions itself
-        state, stats = prune_cycle(state, cfg=cfg)
-    elif due == "decay":
-        state, stats = decay_cycle(state, cfg.decay_every, cfg=cfg)
-    return state, due, stats
+
+    def keep_stats(cycle):
+        def fn(s):
+            s, st = cycle(s)
+            stats.update(st)
+            return s
+        return fn
+
+    # prune_cycle evicts sessions itself
+    state = maintenance_cadence(
+        state, tick, cfg,
+        prune_fn=keep_stats(lambda s: prune_cycle(s, cfg=cfg)),
+        evict_fn=lambda s: evict_sessions_cycle(s, cfg=cfg),
+        decay_fn=keep_stats(lambda s: decay_cycle(s, cfg.decay_every,
+                                                  cfg=cfg)))
+    return state, cadence_due(cfg, tick), stats
 
 
 def ingest_many(state: EngineState, stack: TickStack, *, cfg: EngineConfig
@@ -380,24 +404,42 @@ def ingest_many(state: EngineState, stack: TickStack, *, cfg: EngineConfig
     return state
 
 
-def _flat_leaves(state: EngineState) -> List[Tuple[torch.Tensor, bool]]:
-    """(tensor, holds_u32) in ``jax.tree.flatten`` order: NamedTuple fields
-    in order, each ``lanes`` dict by sorted key."""
-    out: List[Tuple[torch.Tensor, bool]] = []
-    for t in (state.qstore, state.cooc):
-        out += [(t.key_hi, True), (t.key_lo, True)]
-        out += [(t.lanes[n], n in stores.U32_LANES) for n in sorted(t.lanes)]
-        if isinstance(t, RegionTable):
-            out += [(t.chain_region, False), (t.chain_hi, True),
-                    (t.chain_lo, True), (t.region_fill, False),
-                    (t.region_owner, False)]
-        out.append((t.n_dropped, False))
-    s = state.sessions
-    out += [(s.key_hi, True), (s.key_lo, True), (s.ring_hi, True),
-            (s.ring_lo, True), (s.ring_src, False), (s.cursor, False),
-            (s.filled, False), (s.last_tick, False), (s.n_dropped, False),
-            (state.tick, False)]
+def table_leaves(t: Union[HashTable, RegionTable]
+                 ) -> List[Tuple[torch.Tensor, bool]]:
+    """(tensor, holds_u32) of one store in ``jax.tree.flatten`` order:
+    NamedTuple fields in order, the ``lanes`` dict by sorted key."""
+    out = [(t.key_hi, True), (t.key_lo, True)]
+    out += [(t.lanes[n], n in stores.U32_LANES) for n in sorted(t.lanes)]
+    if isinstance(t, RegionTable):
+        out += [(t.chain_region, False), (t.chain_hi, True),
+                (t.chain_lo, True), (t.region_fill, False),
+                (t.region_owner, False)]
+    out.append((t.n_dropped, False))
     return out
+
+
+def session_leaves(s: SessionTable) -> List[Tuple[torch.Tensor, bool]]:
+    """(tensor, holds_u32) of a sessions store in ``jax.tree.flatten``
+    order."""
+    return [(s.key_hi, True), (s.key_lo, True), (s.ring_hi, True),
+            (s.ring_lo, True), (s.ring_src, False), (s.cursor, False),
+            (s.filled, False), (s.last_tick, False), (s.n_dropped, False)]
+
+
+def table_from_leaves(t: Union[HashTable, RegionTable], it):
+    """A store shaped like ``t`` from the next of iterator ``it``'s tensors
+    (inverse of :func:`table_leaves`)."""
+    kh, kl = next(it), next(it)
+    lanes = {n: next(it) for n in sorted(t.lanes)}
+    if isinstance(t, RegionTable):
+        return RegionTable(kh, kl, lanes, *(next(it) for _ in range(6)))
+    return HashTable(kh, kl, lanes, next(it))
+
+
+def _flat_leaves(state: EngineState) -> List[Tuple[torch.Tensor, bool]]:
+    """(tensor, holds_u32) of the state in ``jax.tree.flatten`` order."""
+    return (table_leaves(state.qstore) + table_leaves(state.cooc)
+            + session_leaves(state.sessions) + [(state.tick, False)])
 
 
 def clone_state(state: EngineState) -> EngineState:
@@ -429,15 +471,8 @@ def restore_state(ckpt, template: EngineState, step: Optional[int] = None
 
 def _unflatten(state: EngineState, leaves: List[torch.Tensor]) -> EngineState:
     it = iter(leaves)
-
-    def table(t):
-        kh, kl = next(it), next(it)
-        lanes = {n: next(it) for n in sorted(t.lanes)}
-        if isinstance(t, RegionTable):
-            return RegionTable(kh, kl, lanes, *(next(it) for _ in range(6)))
-        return HashTable(kh, kl, lanes, next(it))
-
-    q, c = table(state.qstore), table(state.cooc)
+    q = table_from_leaves(state.qstore, it)
+    c = table_from_leaves(state.cooc, it)
     sessions = SessionTable(*(next(it) for _ in SessionTable._fields))
     return EngineState(q, c, sessions, next(it))
 

@@ -234,3 +234,91 @@ def test_serving_entry_points_default_to_cuda_and_refuse_without_it(
     with pytest.raises(RuntimeError, match="CUDA"):
         entry(tmp_path / "cuda")
     assert entry(tmp_path / "cpu", device="cpu").type == "cpu"
+
+
+def _sharded_config():
+    from repro_torch.core.sharded_engine import ShardedConfig
+    return ShardedConfig(base=_cfg(), route_capacity=64)
+
+
+def _sharded_state():
+    from repro_torch.core.sharded_engine import init_sharded_state
+    return init_sharded_state(_sharded_config(), 2, device="cpu")
+
+
+def _hose(n_ticks=None):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    shape = (8,) if n_ticks is None else (n_ticks, 8)
+    u32 = lambda: rng.integers(1, 2**32, shape, dtype=np.uint32)
+    return (u32(), u32(), u32(), u32(), np.zeros(shape, np.int32),
+            np.ones(shape, bool))
+
+
+def _init_sharded_state(tmp_path, **kw):
+    from repro_torch.core.sharded_engine import init_sharded_state
+    return init_sharded_state(_sharded_config(), 2, **kw).tick.device
+
+
+def _sharded_hose_step(make):
+    def entry(tmp_path, **kw):
+        from repro_torch.core import sharded_engine as se
+        step = getattr(se, make)(_sharded_config(), 2, **kw)
+        many = make == "make_sharded_ingest_many"
+        return step(_sharded_state(), *_hose(2 if many else None)).tick.device
+    entry.__name__ = make
+    return entry
+
+
+def _make_sharded_decay(tmp_path, **kw):
+    from repro_torch.core.sharded_engine import make_sharded_decay
+    return make_sharded_decay(_sharded_config(), 2, **kw)(
+        _sharded_state(), 4).tick.device
+
+
+def _make_sharded_rank(tmp_path, **kw):
+    from repro_torch.core.sharded_engine import make_sharded_rank
+    return make_sharded_rank(_sharded_config(), 2, **kw)(
+        _sharded_state()).score.device
+
+
+def _restore_sharded_snapshot(tmp_path, **kw):
+    from repro_torch.core.sharded_engine import (restore_sharded_snapshot,
+                                                 save_sharded_snapshot)
+    from repro_torch.distributed.fault_tolerance import CheckpointManager
+    ckpt = CheckpointManager(str(tmp_path))
+    save_sharded_snapshot(_sharded_state(), ckpt)
+    state, _ = restore_sharded_snapshot(_sharded_config(), 2, ckpt, **kw)
+    return state.tick.device
+
+
+def _live_reshard(tmp_path, **kw):
+    from repro_torch.data.stream import QueryEvents
+    from repro_torch.distributed.elastic import live_reshard
+    from repro_torch.streaming.log import FirehoseLogWriter
+    from repro_torch.core.hashing import join_fp
+    s_hi, s_lo, q_hi, q_lo, src, valid = _hose()
+    w = FirehoseLogWriter(str(tmp_path / "log"))
+    w.append(0, QueryEvents(join_fp(s_hi, s_lo), join_fp(q_hi, q_lo), src,
+                            valid), None)
+    w.close()
+    state, stats = live_reshard(_sharded_config(), _sharded_state(), 4, 4,
+                                log_dir=str(tmp_path / "log"), **kw)
+    assert stats["replayed_ticks"] == 1
+    return state.tick.device
+
+
+@pytest.mark.parametrize("entry", [
+    _init_sharded_state, _sharded_hose_step("make_sharded_step"),
+    _sharded_hose_step("make_sharded_tick_step"),
+    _sharded_hose_step("make_sharded_ingest_many"), _make_sharded_decay,
+    _make_sharded_rank, _restore_sharded_snapshot, _live_reshard],
+    ids=lambda f: f.__name__.lstrip("_"))
+def test_sharded_entry_points_default_to_cuda_and_refuse_without_it(
+        monkeypatch, tmp_path, entry):
+    """The sharded engine's entry points and ``live_reshard`` run on CUDA
+    unless the caller asks for the CPU, and raise where CUDA is absent."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(tmp_path / "cuda")
+    assert entry(tmp_path / "cpu", device="cpu").type == "cpu"

@@ -4,7 +4,7 @@ Compares two ``state_arrays()`` dicts leaf by leaf (the JAX engine's
 ``leaf_{i}`` order) under the reference contract of
 ``tests/test_engine.py``: keys, slot placement, ``n_dropped``, sessions and
 tick exact (and, under the region layout, the chain directory, region
-fills and owners); weights within rtol 2e-3; counts within rtol 1e-5. The
+fills and owners; for the sharded engine ``n_route_drop`` too); weights within rtol 2e-3; counts within rtol 1e-5. The
 layout is read from the number of leaves (26 hash, 27 region). A key that
 is live on one side only and whose weight there lies within the weight
 tolerance of the prune threshold is a *prune flip*: it is counted and
@@ -35,6 +35,11 @@ LAYOUTS = {
                    region_fill=14, region_owner=15),
         n_leaves=27),
 }
+# The sharded engine's ShardedState: the same store leaves (per-shard
+# stores concatenated along dim 0), then ``n_route_drop`` after the tick.
+SHARDED_LAYOUTS = {
+    f"sharded-{name}": dict(layout, n_leaves=layout["n_leaves"] + 1)
+    for name, layout in LAYOUTS.items()}
 WEIGHT_RTOL = 2e-3
 COUNT_RTOL = 1e-5
 
@@ -53,11 +58,17 @@ def _prune_flips(a, b, table, threshold):
 
 
 def compare_states(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray],
-                   prune_threshold: float) -> int:
+                   prune_threshold: float, layout: str = None) -> int:
     """Assert the parity contract between two state dicts; returns the
-    number of prune flips (0 means every key and slot matched exactly)."""
+    number of prune flips (0 means every key and slot matched exactly).
+    ``layout`` names a ``SHARDED_LAYOUTS`` entry for sharded states; the
+    engine's layouts are told apart by their leaf counts."""
     assert len(a) == len(b)
-    (layout,) = [v for v in LAYOUTS.values() if v["n_leaves"] == len(a)]
+    if layout is None:
+        (layout,) = [v for v in LAYOUTS.values() if v["n_leaves"] == len(a)]
+    else:
+        layout = SHARDED_LAYOUTS[layout]
+        assert layout["n_leaves"] == len(a), (len(a), layout)
     n = layout["n_leaves"]
     for i in range(n):
         x, y = a[f"leaf_{i}"], b[f"leaf_{i}"]
