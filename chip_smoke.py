@@ -8,6 +8,7 @@
     python3 chip_smoke.py --tune-only
     python3 chip_smoke.py --fleet-only
     python3 chip_smoke.py --sharded-only
+    python3 chip_smoke.py --moe-only
 
 Phases, each of which must pass:
 
@@ -74,8 +75,10 @@ Phases, each of which must pass:
      layouts (hash: sweep policy; region: sweep and lazy policies); the
      spelling job and the count-min sketch on the card against the CPU
      (the small engine's qstore plus planted misspellings); the LM's
-     danube, granite and qwen3 SMOKE models (f32) on the card against the
-     CPU: forward, prefill and 4 decode steps;
+     danube, granite, qwen3, qwen2-moe and mixtral SMOKE models (f32) on
+     the card against the CPU: forward (and the MoE router loss), prefill
+     and 4 decode steps (mixtral's runs the f32 kernel at head dim 16,
+     window 16);
   4. the main paths at deployment scale — ``SearchAssistanceEngine.step``
      for 17 ticks (4 decay sweeps, 2 rank cycles), once with the hash cooc
      layout and once with the region layout, each with its kernels'
@@ -253,7 +256,24 @@ Phases, each of which must pass:
      above 0), the snapshots' ms and bytes, restore and replay ms, the
      replay's multiple of a 10-s tick and the time to fresh, and the
      reshard's wall split (export, fill, replay), pairs, sessions and
-     drops.
+     drops;
+ 13. the MoE LM serving path — qwen2-moe-a2.7b at its published widths
+     and depth (60 experts, top-4, 4 shared), bf16, random weights from a
+     seed: the scoring forward over 4 requests of 4096 tokens twice (24
+     ``flash_attention`` launches, counts set to 0 just before and read
+     just after; bit-identical logits; wall ms, tokens/s, peak memory),
+     the capacity drops and router loss of each layer, and the layer with
+     the most drops routed again on the card and, from the same logits,
+     on the CPU (equal dispatch); prefill of the same prompts and 16
+     greedy decode steps (ms, peak memory, flash launches: 0); then, with
+     each MoE layer's top-k pinned to a kernel forward's, (A) a prefill
+     against the scoring forward and (B) at a capacity where nothing
+     drops, prefill and 16 decode steps against one kernel forward over
+     prompt + decoded tokens, within bf16 bounds derived beside
+     ``MOE_BF16_REL_RMS``; last, ``flash_attention`` at the scoring
+     forward's layer-0 q/k/v (head dim 128, causal) against its twin,
+     with its time, bound, SDPA's time and the ptxas lines of its D-128
+     instantiation.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -272,7 +292,8 @@ synthetic lanes and on the lanes its last rank cycle gave ``score_gate``.
 ``--flash-crowd-only`` builds the kernels and runs phase 9 alone;
 ``--tune-only`` builds them and runs phase 10 alone; ``--fleet-only``
 builds them and runs phase 11 alone; ``--sharded-only`` builds them and
-runs phase 12 alone.
+runs phase 12 alone; ``--moe-only`` builds them and runs the MoE SMOKE
+models of phase 3 and phase 13 alone.
 ``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
 DIR lies inside this checkout (a parent commit unpacked with ``git
 archive`` under ``build/``), so one call on one card profiles two trees.
@@ -1890,13 +1911,14 @@ def attention_bound(q, k, causal: bool, window: int):
             which, dict(terms, pairs=pairs))
 
 
-def _logit_gap(got, exp):
-    """(relative RMS, max abs, top-1 agreement) of two [B, T, V] logit
-    tensors, one batch row at a time in f32."""
+def _logit_gap(got, exp, vocab: int):
+    """(relative RMS, max abs, top-1 agreement) of two [B, T, Vp] logit
+    tensors over their first ``vocab`` columns (the padded rows hold
+    -1e30, whose square overflows f32), one batch row at a time in f32."""
     sq = ref_sq = mx = 0.0
     same = n = 0
     for g, e in zip(got, exp):
-        g, e = g.float(), e.float()
+        g, e = g[..., :vocab].float(), e[..., :vocab].float()
         d = g - e
         sq += float((d * d).sum())
         ref_sq += float((e * e).sum())
@@ -1906,11 +1928,13 @@ def _logit_gap(got, exp):
     return (sq / ref_sq) ** 0.5, mx, same / n
 
 
-def lm_scoring(model, cfg, tokens):
+def lm_scoring(model, cfg, tokens, routes=None):
     """The scoring forward twice: first untimed, capturing layer 0's q/k/v
-    as the kernel receives them; then timed, with the launch counts set to
-    0 just before and read just after. Returns (logits, launches, wall ms,
-    peak GiB, captured (q, k, v), whether the two are bit-identical)."""
+    as the kernel receives them (and, given a list ``routes``, each MoE
+    layer's router logits, ``Route`` and top-k indices into it); then
+    timed, with the launch counts set to 0 just before and read just
+    after. Returns (logits, launches, wall ms, peak GiB, captured (q, k,
+    v), whether the two are bit-identical)."""
     import torch
     from repro_torch import kernels as tk
     from repro_torch.kernels import ops
@@ -1925,7 +1949,8 @@ def lm_scoring(model, cfg, tokens):
 
     ops.flash_attention = capture
     try:
-        first = tr.forward(model, tokens, cfg)[0]
+        with MoESpies(routes):
+            first = tr.forward(model, tokens, cfg)[0]
     finally:
         ops.flash_attention = kernel_call
     torch.cuda.synchronize()
@@ -1992,7 +2017,7 @@ def lm_agreement(model, cfg, tokens, pre, dec, fed, max_abs, rel_rms=None):
     chunk = pre.shape[1]
     for name, got, exp in (("prefill", pre, full[:, T - chunk:T]),
                            ("decode", dec, full[:, T:T + n])):
-        rms, mx, top1 = _logit_gap(got, exp)
+        rms, mx, top1 = _logit_gap(got, exp, cfg.vocab_size)
         log(f"  {name} vs kernel forward over {T + n} tokens "
             f"({got.shape[1]} positions): rel RMS {rms!r}, max abs {mx!r} "
             f"(bounds: rel RMS {rel_rms}, max abs {max_abs}), top-1 "
@@ -2002,12 +2027,15 @@ def lm_agreement(model, cfg, tokens, pre, dec, fed, max_abs, rel_rms=None):
             raise AssertionError(f"{name} disagrees with the kernel forward")
 
 
-def check_flash_attention(q, k, v, window: int):
+def check_flash_attention(q, k, v, window: int, must_beat_sdpa=True,
+                          ptxas_kernel="flash_fwd_tc"):
     """flash_attention on the scoring forward's layer-0 q/k/v (bf16), held
     against its twin one batch row at a time (a row's f32 scores are
     [Hq, T, T]), then an f32 case at a quarter of T. Times: the bare launch,
-    the twin row by row (summed) and SDPA with the band as its mask; the
-    bf16 kernel must be faster than that SDPA call."""
+    the twin row by row (summed) and SDPA with the band as its mask (with
+    ``is_causal`` where there is no window); with ``must_beat_sdpa`` the
+    bf16 kernel must be faster than that SDPA call. The ``-Xptxas -v``
+    lines printed are those of the entry functions named ``ptxas_kernel``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -2056,6 +2084,9 @@ def check_flash_attention(q, k, v, window: int):
     band = (kpos <= qpos) & (kpos > qpos - window)
 
     def sdpa():
+        if window <= 0:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
                                               enable_gqa=True)
     library_ms = time_ms(sdpa)
@@ -2070,14 +2101,15 @@ def check_flash_attention(q, k, v, window: int):
     log(f"  flash_attention bf16: {ms!r} ms, {100 * b_ms / ms!r}% of bound, "
         f"{flops / ms / 1e9!r} TFLOP/s; SDPA {library_ms!r} ms "
         f"({library_ms / ms!r}x the kernel's time)")
-    for line in ptxas_report("flash_attention", "flash_fwd_tc"):
+    ptxas = ptxas_report("flash_attention", ptxas_kernel)
+    for line in ptxas:
         log(f"  flash_attention bf16 ptxas: {line}")
-    if ms >= library_ms:
+    if must_beat_sdpa and ms >= library_ms:
         raise AssertionError(f"flash_attention bf16 {ms} ms is not faster "
                              f"than SDPA's {library_ms} ms")
     return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+                library_ms=library_ms, ptxas=ptxas)
 
 
 def ptxas_report(stem: str, kernel: str):
@@ -2112,17 +2144,23 @@ def sdpa_backends(fn):
     return out
 
 
-def small_lm(dev) -> None:
+LM_SMOKE_ARCHS = ("h2o-danube-1.8b", "granite-3-8b", "qwen3-8b")
+MOE_SMOKE_ARCHS = ("qwen2-moe-a2.7b", "mixtral-8x22b")
+
+
+def small_lm(dev, archs=LM_SMOKE_ARCHS + MOE_SMOKE_ARCHS) -> None:
     """Phase 3 for the LM: each SMOKE model (f32, TF32 off) on the card
     against the same weights on the CPU: the forward (kernel against twin),
     then prefill of 64 tokens and 4 greedy decode steps; logits within
-    1e-4 (f32 sums in another order)."""
+    1e-4 (f32 sums in another order), the MoE models' router loss within
+    1e-6. Mixtral's SMOKE model runs the f32 kernel at head dim 16, window
+    16."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tr
     torch.backends.cuda.matmul.allow_tf32 = False
-    for arch in ("h2o-danube-1.8b", "granite-3-8b", "qwen3-8b"):
+    for arch in archs:
         cfg = get_arch(arch).smoke_config
         cpu = tr.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
                              device="cpu")
@@ -2131,8 +2169,13 @@ def small_lm(dev) -> None:
                               device="cpu").to(dev)
         toks = torch.from_numpy(np.random.default_rng(SEED).integers(
             0, cfg.vocab_size, (2, 64)).astype(np.int32))
-        pairs = [(tr.forward(card, toks.to(dev), cfg)[0],
-                  tr.forward(cpu, toks, cfg)[0])]
+        (got, _, aux_card), (exp, _, aux_cpu) = (
+            tr.forward(card, toks.to(dev), cfg), tr.forward(cpu, toks, cfg))
+        if abs(float(aux_card) - float(aux_cpu)) > 1e-6:
+            raise AssertionError(f"{arch} router loss {float(aux_card)!r} "
+                                 f"on the card, {float(aux_cpu)!r} on the "
+                                 f"CPU")
+        pairs = [(got, exp)]
         caches = [tr.init_caches(cfg, 2, 68, device=d) for d in (dev, "cpu")]
         gl, caches[0] = tr.prefill(card, toks.to(dev), cfg, caches[0])
         cl, caches[1] = tr.prefill(cpu, toks, cfg, caches[1])
@@ -4363,6 +4406,253 @@ def profile_hash() -> None:
             + ", ".join(f"{k} {v!r} ms" for k, v in ms.items()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the MoE LM serving path (qwen2-moe-a2.7b at its published widths).
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_BATCH, MOE_SEQ, MOE_DECODE = 4, 4096, 16
+# Agreement of prefill/decode with the kernel forward, in logits, with the
+# served run's top-k choices pinned to the kernel forward's (the choice is
+# a discontinuity: where two router logits lie closer than the runs'
+# rounding gap, they pick different experts, and that token's output moves
+# by a gate times the difference of two experts, O(gate)). Pinned, the runs
+# differ only in where they round, as in phase 6, but at more sites a
+# layer: attention ~6 (phase 6's count), the routed experts 9 (three
+# products, silu, the product, the gate's cast, three adds of the k = 4
+# contributions), the shared experts 8 (three products, silu, the product,
+# the gate's product, sigmoid, its multiply) and the residual add: ~24 a
+# layer over 24 layers, sqrt(576) x 2^-9 = 4.7% relative RMS expected,
+# bounded at twice that, 10%; 4.7% RMS puts 6 sigma of ~N(0, 1) logits at
+# ~0.28, bounded at 1.0. A wrong cache slot, position or expert moves logits
+# by O(1) and fails both. The choices that differ from the served run's own
+# are counted and printed.
+MOE_BF16_REL_RMS, MOE_BF16_MAX_ABS = 0.10, 1.0
+
+
+class MoESpies:
+    """Spies on ``models.moe.top_k`` and ``models.moe.route`` for the
+    forwards run inside: with ``routes`` (a list), one entry per MoE layer
+    call holding its top-k indices, router logits and ``Route``; with
+    ``pins`` (an iterator of top-k index tensors, one per MoE layer call in
+    order), each call's choice replaced by the pinned one, the gates taken
+    from its own logits, and the number of tokens whose own top-k set
+    differs from the pin appended to ``flips``."""
+
+    def __init__(self, routes=None, pins=None, flips=None):
+        self.routes, self.pins, self.flips = routes, pins, flips
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.real = real_top_k, real_route = moe.top_k, moe.route
+        if self.routes is None and self.pins is None:
+            return self
+
+        def top_k(logits, k):
+            v, i = real_top_k(logits, k)
+            if self.pins is not None:
+                pin = next(self.pins)
+                self.flips.append((i.sort(-1).values
+                                   != pin.sort(-1).values).any(-1).sum())
+                v, i = torch.gather(logits, -1, pin), pin
+            if self.routes is not None:
+                self.routes.append({"top_i": i})
+            return v, i
+
+        def route(logits, cfg):
+            r = real_route(logits, cfg)
+            if self.routes is not None:
+                self.routes[-1].update(logits=logits, route=r)
+            return r
+        moe.top_k, moe.route = top_k, route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k, moe.route = self.real
+        return False
+
+
+def moe_pinned_serving(model, cfg, tokens, fed, pins):
+    """Prefill ``tokens`` into fresh caches, then one decode step per column
+    of ``fed``, each MoE layer call's top-k pinned (:class:`MoESpies`).
+    Returns (prefill logits, decode logits [B, n, V], routing choices that
+    differ from the run's own)."""
+    import torch
+    from repro_torch.models import transformer as tr
+    B, T = tokens.shape
+    n = fed.shape[1]
+    caches = tr.init_caches(cfg, B, T + n, device=tokens.device)
+    flips = []
+    with MoESpies(pins=iter(pins), flips=flips):
+        pre, caches = tr.prefill(model, tokens, cfg, caches)
+        outs = []
+        for j in range(n):
+            lg, caches = tr.decode_step(model, fed[:, j:j + 1], cfg, caches)
+            outs.append(lg)
+    return pre, torch.stack(outs, 1) if outs else None, int(sum(flips))
+
+
+def moe_gap(name, got, exp, vocab, flips, n_choices):
+    rms, mx, top1 = _logit_gap(got, exp, vocab)
+    log(f"  {name} ({got.shape[1]} positions, top-k pinned to the kernel "
+        f"forward's): rel RMS {rms!r}, max abs {mx!r} (bounds: rel RMS "
+        f"{MOE_BF16_REL_RMS}, max abs {MOE_BF16_MAX_ABS}), top-1 agreement "
+        f"{top1!r}; routing choices the run would have made otherwise: "
+        f"{flips} of {n_choices} (token, layer)")
+    import torch
+    if mx > MOE_BF16_MAX_ABS or rms > MOE_BF16_REL_RMS or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} disagrees with the kernel forward")
+
+
+def moe_routing_on_card(routes, cfg) -> None:
+    """The layer with the most capacity drops: its router logits from the
+    scoring forward routed on the card and, the same tensor moved to the
+    CPU, on the CPU; the dispatch must be equal, and equal to what the
+    forward routed."""
+    import torch
+    from repro_torch.models import moe
+    drops = [int(r["route"].n_dropped) for r in routes]
+    layer = max(range(len(drops)), key=drops.__getitem__)
+    logits = routes[layer]["logits"]
+    card = moe.route(logits, cfg.moe)
+    cpu = moe.route(logits.cpu(), cfg.moe)
+    seen = routes[layer]["route"]
+    for name in ("slot_tok", "token_slot", "n_kept", "n_dropped"):
+        a, b, c = (getattr(r, name) for r in (card, cpu, seen))
+        if not (torch.equal(a.cpu(), b) and torch.equal(a, c)):
+            raise AssertionError(f"routing {name} differs, card vs CPU")
+    log(f"  routing on the card vs the CPU, layer {layer}'s router logits "
+        f"{list(logits.shape)} (C {card.C}): slot_tok, token_slot and the "
+        f"counts equal (kept {int(card.n_kept)}, dropped "
+        f"{int(card.n_dropped)})")
+
+
+def run_moe(dev, rows):
+    """Phase 13: qwen2-moe-a2.7b at its published widths and depth, bf16,
+    random weights from a seeded generator on the card. Returns the scoring
+    forward's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    t_phase = time.perf_counter()
+    cfg = get_arch(MOE_ARCH).config
+    m = cfg.moe
+    B, T, n_dec = MOE_BATCH, MOE_SEQ, MOE_DECODE
+    t0 = time.perf_counter()
+    model = tr.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[13] MoE LM serving path: {cfg}, {cfg.param_count()} parameters "
+        f"by param_count ({cfg.active_param_count()} active a token; "
+        f"{n_params} held, the vocabulary padded to {cfg.padded_vocab}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB), made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)).to(dev)
+    from repro_torch.models.moe import capacity
+    with torch.inference_mode():
+        routes = []
+        logits, launches, wall, peak, (q, k, v), same = lm_scoring(
+            model, cfg, tokens, routes)
+        missing = [n for n in tk.PATH_KERNELS["moe"] if launches[n] <= 0]
+        if missing or launches["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"MoE scoring forward launches {launches}")
+        if logits.shape != (B, T, cfg.padded_vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("MoE scoring logits not finite or misshapen")
+        if not same:
+            raise AssertionError("two MoE scoring forwards differ")
+        drops = [int(r["route"].n_dropped) for r in routes]
+        auxs = [float(r["route"].aux) for r in routes]
+        log(f"  scoring forward: {B} x {T} tokens in {wall!r} ms "
+            f"({B * T / wall * 1e3!r} tokens/s), peak {peak!r} GiB, "
+            f"flash_attention launches {launches['flash_attention']}; "
+            f"C {capacity(m, B * T)} slots an expert")
+        log(f"  capacity drops a layer (of {B * T * m.top_k} assignments): "
+            f"{drops} (mean {statistics.mean(drops)!r}); router loss a "
+            f"layer {auxs}, mean {statistics.mean(auxs)!r}")
+        log("[5] determinism: two MoE scoring forwards give bit-identical "
+            "logits (no float atomics in the dispatch or the combine)")
+        moe_routing_on_card(routes, cfg)
+        _profiled("MoE scoring forward", lambda: tr.forward(model, tokens,
+                                                            cfg))
+        pre, dec, fed, pre_ms, step_ms, s_launches, s_peak = lm_serving(
+            dev, model, cfg, tokens, n_dec, profile_step=True)
+        if s_launches["flash_attention"] != 0 or \
+                not bool(torch.isfinite(dec).all()):
+            raise AssertionError("MoE serving launches or logits")
+        log(f"  serving: prefill {B} x {T} (C {capacity(m, B * T)}): "
+            f"{pre_ms!r} ms; {n_dec} decode steps (C {capacity(m, B)}), ms "
+            f"each {step_ms!r} (median {statistics.median(step_ms)!r}); "
+            f"peak {s_peak!r} GiB; flash_attention launches "
+            f"{s_launches['flash_attention']} (prefill and decode read the "
+            f"cache in plain torch)")
+        rms, mx, top1 = _logit_gap(pre, logits, cfg.vocab_size)
+        log(f"  prefill vs the scoring forward, own routing (printed, not "
+            f"held): rel RMS {rms!r}, max abs {mx!r}, top-1 agreement "
+            f"{top1!r}")
+        del pre, dec
+        # (A) prefill against the scoring forward: the same tokens, the same
+        # C, the same dispatch order; top-k pinned to the forward's.
+        pins = [r["top_i"] for r in routes]
+        pre, _, flips = moe_pinned_serving(model, cfg, tokens, fed[:, :0],
+                                           pins)
+        moe_gap("prefill vs the scoring forward", pre, logits,
+                cfg.vocab_size, flips, B * T * cfg.n_layers)
+        del pre, logits, routes, pins
+        torch.cuda.empty_cache()
+        # (B) decode: a forward over prompt + fed tokens has another C and
+        # another drop order, so both run at a capacity where nothing drops
+        # (capacity_factor E / k: C >= the tokens of a group), where the
+        # MoE is per token and the served run and the forward compute the
+        # same function.
+        cfg_nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        full_routes = []
+        with MoESpies(routes=full_routes):
+            full = tr.forward(model, torch.cat([tokens, fed], 1), cfg_nd)[0]
+        if any(int(r["route"].n_dropped) for r in full_routes):
+            raise AssertionError("the no-drop forward dropped assignments")
+        ti = [r["top_i"].view(B, T + n_dec, m.top_k) for r in full_routes]
+        pins = [t[:, :T].reshape(1, B * T, m.top_k) for t in ti]
+        for j in range(n_dec):
+            pins += [t[:, T + j].reshape(1, B, m.top_k) for t in ti]
+        del full_routes, ti
+        pre, dec, flips = moe_pinned_serving(model, cfg_nd, tokens, fed,
+                                             pins)
+        log(f"  no-drop capacity (factor {cfg_nd.moe.capacity_factor}): "
+            f"C {capacity(cfg_nd.moe, B * (T + n_dec))} over {B} x "
+            f"{T + n_dec} tokens, {capacity(cfg_nd.moe, B * T)} at prefill, "
+            f"{capacity(cfg_nd.moe, B)} at decode")
+        n_choices = B * (T + n_dec) * cfg.n_layers
+        moe_gap(f"prefill vs kernel forward over {T + n_dec} tokens", pre,
+                full[:, :T], cfg.vocab_size, flips, n_choices)
+        moe_gap(f"decode vs kernel forward over {T + n_dec} tokens", dec,
+                full[:, T:T + n_dec], cfg.vocab_size, flips, n_choices)
+        del pre, dec, full, pins
+        torch.cuda.empty_cache()
+        log(f"[2] flash_attention at the MoE scoring forward's layer-0 "
+            f"shapes (head dim {cfg.hd}, causal, no window)")
+        row = check_flash_attention(q, k, v, cfg.window,
+                                    must_beat_sdpa=False,
+                                    ptxas_kernel=f"flash_fwd_tcILi{cfg.hd}E")
+        row["launches"] = launches["flash_attention"]
+        rows.setdefault("flash_attention", {})[f"moe_d{cfg.hd}"] = row
+        log(f"  flash_attention at the MoE path's shape: {json.dumps(row)}")
+        del q, k, v
+    del model
+    torch.cuda.empty_cache()
+    log(f"  MoE phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-region-only", action="store_true",
@@ -4384,6 +4674,10 @@ def main() -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="build the kernels and run phase 12 (the sharded "
                          "engine), and nothing else")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="build the kernels and run the MoE SMOKE models "
+                         "card vs CPU and phase 13 (the MoE LM serving "
+                         "path), and nothing else")
     ap.add_argument("--root", default=str(ROOT),
                     help="with --profile-region-only or --profile-hash-only:"
                          " a directory inside this checkout whose "
@@ -4419,7 +4713,7 @@ def main() -> int:
     card = card_line()
     t_start = time.perf_counter()
     if (args.flash_crowd_only or args.tune_only or args.fleet_only
-            or args.sharded_only):
+            or args.sharded_only or args.moe_only):
         log(f"[1] card: {card} | torch {torch.__version__} cuda "
             f"{torch.version.cuda}")
         for stem in build.build_all():
@@ -4432,6 +4726,10 @@ def main() -> int:
             run_fleet(dev, card)
         if args.sharded_only:
             run_sharded(dev, card, score_floor())
+        if args.moe_only:
+            log("[3] MoE SMOKE models on the card vs the CPU")
+            small_lm(dev, MOE_SMOKE_ARCHS)
+            run_moe(dev, {})
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4589,6 +4887,10 @@ def main() -> int:
 
     # ---- 12. the sharded engine ----
     launches["sharded"] = run_sharded(dev, card, floor)
+    torch.cuda.empty_cache()
+
+    # ---- 13. the MoE LM serving path ----
+    launches["moe"] = run_moe(dev, rows)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_arch(arch_id)`` / ``list_archs()``.
 
-Copies of the JAX package's configs for the architectures the port runs.
-The others (MoE, GNN, recsys) raise until their slice is ported.
+Copies of the JAX package's configs for the architectures the port runs
+(the dense and MoE LMs). The others (GNN, recsys) raise until their slice
+is ported.
 """
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ _ARCH_MODULES = {
     "granite-3-8b": "granite_3_8b",
     "qwen3-8b": "qwen3_8b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
-_NOT_PORTED = ("mixtral-8x22b", "qwen2-moe-a2.7b", "gat-cora", "bst",
-               "xdeepfm", "bert4rec", "two-tower-retrieval")
+_NOT_PORTED = ("gat-cora", "bst", "xdeepfm", "bert4rec",
+               "two-tower-retrieval")
 
 
 def get_arch(arch_id: str) -> ArchSpec:

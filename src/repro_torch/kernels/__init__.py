@@ -38,8 +38,9 @@ The hash layout's path runs ``decay_prune_multi``, ``score_gate`` and
 ``bucket_topk``; the region layout's runs ``decay_prune_multi`` (the
 qstore sweep), ``chain_find``, ``region_rank`` and ``bucket_topk``
 (:data:`PATH_KERNELS`). The spelling job runs ``edit_distance``; the LM's
-cache-free forward runs ``flash_attention`` once per layer (its prefill
-and decode go through the KV cache in plain torch, as in JAX).
+cache-free forward, dense or MoE, runs ``flash_attention`` once per layer
+(its prefill and decode go through the KV cache in plain torch, as in JAX;
+the MoE layer is plain torch, as it is ``jnp`` in JAX).
 """
 from __future__ import annotations
 
@@ -50,14 +51,15 @@ import torch
 KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk", "chain_find",
            "region_rank", "assoc_score", "edit_distance", "flash_attention")
 
-# The kernels each cooc layout's main path, the spelling job and the LM's
-# scoring forward launch.
+# The kernels each cooc layout's main path, the spelling job and the dense
+# and MoE LMs' scoring forwards launch.
 PATH_KERNELS = {
     "hash": ("decay_prune_multi", "score_gate", "bucket_topk"),
     "region": ("decay_prune_multi", "chain_find", "region_rank",
                "bucket_topk"),
     "spelling": ("edit_distance",),
     "lm": ("flash_attention",),
+    "moe": ("flash_attention",),
 }
 
 # Launch counts per kernel: incremented only where a wrapper launches its

@@ -1,3 +1,3 @@
-"""The LM side package: layers, KV caches, the dense transformer and the
-architecture API (its serving path; training, MoE, GNN and recsys are not
-ported yet)."""
+"""The LM side package: layers, KV caches, the dense and MoE transformer
+and the architecture API (its serving path; training, GNN and recsys are
+not ported yet)."""

@@ -1,12 +1,13 @@
 """Architecture API, LM serving half: port of the JAX package's
-``models/api.py`` for the dense LMs' prefill and decode cells.
+``models/api.py`` for the dense and MoE LMs' prefill and decode cells.
 
-  * ``ShapeCell`` / ``ArchSpec``   — one (architecture x input shape) cell
-  * ``serve_fn(cfg, cell)``         — the step for a prefill or decode cell
-  * ``make_inputs(rng, cfg, cell)`` — random tokens and fresh caches
+  * ``ShapeCell`` / ``ArchSpec``      — one (architecture x input shape) cell
+  * ``serve_fn(cfg, cell)``            — the step for a prefill or decode cell
+  * ``make_inputs(rng, cfg, cell)``    — random tokens and fresh caches
+  * ``adapt_lm_config(cfg, cell, dp)`` — MoE dispatch groups for a cell
 
 GNN and recsys models, and training cells, are not ported yet (ROADMAP
-Queue 1 item 14) and raise ``NotImplementedError``.
+Queue 1 items 14.3 and 14.4) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,6 +63,22 @@ def serve_fn(cfg, cell: ShapeCell) -> Callable:
     if cell.kind == "prefill":
         return lambda p, caches, tokens: tr.prefill(p, tokens, cfg, caches)
     return lambda p, caches, tokens: tr.decode_step(p, tokens, cfg, caches)
+
+
+def adapt_lm_config(cfg: tr.LMConfig, cell: ShapeCell, dp_size: int = 1
+                    ) -> tr.LMConfig:
+    """Per-cell config tweaks: MoE dispatch groups must divide the token
+    count and align with the data-parallel axis (one card: ``dp_size``
+    1, so one group)."""
+    if not isinstance(cfg, tr.LMConfig) or cfg.moe is None:
+        return cfg
+    d = cell.dims
+    n_tok = d["batch"] * d["seq"] if cell.kind in ("train", "prefill") \
+        else d["batch"]
+    g = dp_size
+    while g > 1 and n_tok % g:
+        g -= 1
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, groups=g))
 
 
 def make_inputs(rng: np.random.Generator, cfg, cell: ShapeCell,

@@ -3,9 +3,10 @@
 The JAX tree is ``{"embed", "blocks": {...stacked on a leading layer
 dim...}, "norm_f", "lm_head"}``; :func:`params_from_jax` takes it as numpy
 arrays (bf16 leaves as the ``bfloat16`` numpy dtype JAX hands out, or any
-other dtype, cast to the config's) and unstacks ``blocks`` into the
-module's per-layer blocks. :func:`params_to_numpy` goes the other way, for
-the tests.
+other dtype, each cast to the dtype of the parameter it loads into: an MoE
+router stays f32 in a bf16 model) and unstacks ``blocks`` into the
+module's per-layer blocks. :func:`moe_from_jax` loads one ``init_moe``
+tree. :func:`params_to_numpy` goes the other way, for the tests.
 """
 from __future__ import annotations
 
@@ -13,8 +14,10 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..core.stores import resolve_device
+from .moe import MoE, MoEConfig
 from .transformer import LM, LMConfig
 
 
@@ -37,27 +40,40 @@ def _flat(tree, prefix="") -> Dict[str, np.ndarray]:
     return out
 
 
+def _load(module: nn.Module, flat: Dict[str, np.ndarray], device):
+    """Fill ``module`` from ``flat``, each value cast to its parameter's
+    dtype; every parameter must be named once."""
+    dtypes = {n: t.dtype for n, t in module.state_dict().items()}
+    module.load_state_dict({n: _tensor(a, dtypes[n], device)
+                            for n, a in flat.items()}, strict=True)
+    return module
+
+
 def params_from_jax(np_params, cfg: LMConfig, device="cuda") -> LM:
     """The port's module holding the JAX parameter tree's values."""
     device = resolve_device(device)
-    model = LM(cfg, device)
-    dt = cfg.torch_dtype
-    state = {}
+    flat = {}
     for name, a in _flat(np_params).items():
         if name.startswith("blocks."):
             rest = name[len("blocks."):]
             for i in range(cfg.n_layers):
-                state[f"blocks.{i}.{rest}"] = _tensor(np.asarray(a)[i], dt,
-                                                      device)
+                flat[f"blocks.{i}.{rest}"] = np.asarray(a)[i]
         else:
-            state[name] = _tensor(a, dt, device)
-    model.load_state_dict(state, strict=True)
-    return model
+            flat[name] = a
+    return _load(LM(cfg, device), flat, device)
+
+
+def moe_from_jax(np_params, d_model: int, cfg: MoEConfig, dtype,
+                 device="cuda") -> MoE:
+    """The port's MoE module holding one JAX ``init_moe`` tree's values."""
+    device = resolve_device(device)
+    return _load(MoE(d_model, cfg, dtype, device), _flat(np_params), device)
 
 
 def params_to_numpy(model: LM) -> Dict:
-    """The JAX-shaped tree of numpy arrays (``blocks`` stacked again); bf16
-    leaves come back as float32."""
+    """The JAX-shaped tree of numpy arrays (``blocks`` stacked again, an
+    MoE block's under ``blocks/moe``, its shared experts under
+    ``blocks/moe/shared``); bf16 leaves come back as float32."""
     tree: Dict = {}
     stacked: Dict[str, list] = {}
     for name, t in model.state_dict().items():

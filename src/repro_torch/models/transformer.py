@@ -1,16 +1,16 @@
-"""Dense causal LM: GQA / sliding-window / qk-norm, forward, prefill and
-decode. Port of the dense half of the JAX package's ``models/transformer.py``.
+"""Dense and MoE causal LM: GQA / sliding-window / qk-norm, forward,
+prefill and decode. Port of the JAX package's ``models/transformer.py``.
 
 The JAX ``lax.scan`` over stacked block parameters becomes a loop over an
 ``nn.ModuleList`` of blocks; the stacked caches stay stacked (a leading
 layer dim) and each layer updates its slice in place. Matmuls run in the
 config dtype, softmax and norms accumulate in f32. The cache-free forward
 runs attention through ``ops.flash_attention``: the hand-written kernel on
-CUDA, its plain version on the CPU.
+CUDA, its plain version on the CPU. A block holds a mixture-of-experts FFN
+(``models/moe.py``) where the config has ``moe``.
 
-Not ported yet (ROADMAP Queue 1 item 14): mixture-of-experts blocks
-(``models/moe.py``), ``loss_fn``, the sharding rules and rematerialisation,
-which belong to the training slice.
+Not ported yet (ROADMAP Queue 1 item 14.4): ``loss_fn``, the sharding
+rules and rematerialisation, which belong to the training slice.
 """
 from __future__ import annotations
 
@@ -24,9 +24,7 @@ from ..core.stores import resolve_device
 from . import kv_cache as kvc
 from .layers import (Attention, AttentionConfig, SwiGLU, attention,
                      init_linear, param, rms_norm, swiglu)
-
-MOE_PENDING = ("mixture-of-experts LMs are not ported yet (models/moe.py, "
-               "ROADMAP Queue 1 item 14)")
+from .moe import MoE, MoEConfig, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +40,7 @@ class LMConfig:
     qk_norm: bool = False
     window: int = 0                   # sliding-window attention width
     rope_theta: float = 10000.0
-    moe: Optional[Any] = None         # not ported: raises where it is read
+    moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"
     remat: str = "full"               # read by the training slice (not yet)
     tie_embeddings: bool = False
@@ -85,6 +83,19 @@ class LMConfig:
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
 
+    def active_param_count(self) -> int:
+        """Active parameters per token (N_active for MoE MODEL_FLOPS)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        attn = d * self.hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        ff = 3 * d * self.moe.d_ff * self.moe.top_k + d * self.moe.n_experts
+        if self.moe.n_shared_experts:
+            ff += 3 * d * self.moe.shared_d_ff * self.moe.n_shared_experts + d
+        per_layer = attn + ff + 2 * d
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
 
 # ---------------------------------------------------------------------------
 # parameters
@@ -97,7 +108,10 @@ class Block(nn.Module):
         self.ln_attn = param(torch.ones(cfg.d_model, dtype=dt, device=device))
         self.ln_ffn = param(torch.ones(cfg.d_model, dtype=dt, device=device))
         self.attn = Attention(cfg.attn, dt, device, gen)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dt, device, gen)
+        if cfg.moe:
+            self.moe = MoE(cfg.d_model, cfg.moe, dt, device, gen)
+        else:
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dt, device, gen)
 
 
 class LM(nn.Module):
@@ -105,8 +119,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: LMConfig, device, gen=None):
         super().__init__()
-        if cfg.moe:
-            raise NotImplementedError(MOE_PENDING)
         dt, d, vp = cfg.torch_dtype, cfg.d_model, cfg.padded_vocab
         self.embed = init_linear(gen, vp, d, dt, device, scale=0.02)
         self.blocks = nn.ModuleList(Block(cfg, device, gen)
@@ -119,7 +131,8 @@ class LM(nn.Module):
 def init_params(cfg: LMConfig, *, generator: torch.Generator,
                 device="cuda") -> LM:
     """Random parameters with the JAX ``init_params`` distributions: embed
-    N(0, 0.02^2), linear weights N(0, 1/d_in), lm_head N(0, 1/d), norms 1.
+    N(0, 0.02^2), linear weights N(0, 1/d_in), lm_head N(0, 1/d), norms 1;
+    an MoE block's as ``moe.init_moe`` draws them (its router in f32).
     ``generator`` must live on ``device``; the numbers differ from JAX's."""
     return LM(cfg, resolve_device(device), generator)
 
@@ -133,7 +146,11 @@ def _block_apply(block: Block, x, positions, cfg: LMConfig,
     h, cache = attention(block.attn, rms_norm(x, block.ln_attn), cfg.attn,
                          positions, cache)
     x = x + h
-    return x + swiglu(block.ffn, rms_norm(x, block.ln_ffn)), cache
+    if cfg.moe:
+        h, aux = moe_ffn(block.moe, rms_norm(x, block.ln_ffn), cfg.moe)
+    else:
+        h, aux = swiglu(block.ffn, rms_norm(x, block.ln_ffn)), 0.0
+    return x + h, cache, aux
 
 
 def _layer_cache(caches: Dict, i: int) -> Dict:
@@ -142,20 +159,21 @@ def _layer_cache(caches: Dict, i: int) -> Dict:
 
 def forward(params: LM, tokens, cfg: LMConfig, *, positions=None,
             caches: Optional[Dict] = None
-            ) -> Tuple[torch.Tensor, Optional[Dict], float]:
+            ) -> Tuple[torch.Tensor, Optional[Dict], Any]:
     """tokens: [B, T] -> (logits [B, T, Vp], caches, aux_loss). With
     ``caches`` each layer reads and writes its slice in place; the same
-    dict is returned. ``aux_loss`` is 0.0 (dense blocks)."""
-    if cfg.moe:
-        raise NotImplementedError(MOE_PENDING)
+    dict is returned. ``aux_loss`` is the mean of the layers' router losses
+    (a 0-dim f32 tensor) for MoE blocks and 0.0 for dense ones."""
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device).expand(B, T)
     x = params.embed[tokens].to(cfg.torch_dtype)
+    auxs = []
     for i, block in enumerate(params.blocks):
         cache = None if caches is None else _layer_cache(caches, i)
-        x, _ = _block_apply(block, x, positions, cfg, cache)
+        x, _, aux = _block_apply(block, x, positions, cfg, cache)
+        auxs.append(aux)
     x = rms_norm(x, params.norm_f)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = x @ head
@@ -163,7 +181,8 @@ def forward(params: LM, tokens, cfg: LMConfig, *, positions=None,
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size
         logits = logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
-    return logits, caches, 0.0
+    aux = torch.stack(auxs).mean() if cfg.moe else 0.0
+    return logits, caches, aux
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@ version, the engine on the card against the engine on the CPU under both
 cooc layouts, bit-identical state across two runs on the card, overload
 control's fused flushes against per-tick steps on the card, a compaction
 fold on the card against the same fold on the CPU, the LM's SMOKE
-models on the card against the CPU, the autotuner on the card, and the
-engine on the card against the port's reference engine.
+models (dense and MoE) and the MoE layer on the card against the CPU,
+the autotuner on the card, and the engine on the card against the port's
+reference engine.
 
 Every test takes the ``cuda`` fixture, which skips it where there is no
 card (the CPU test run). This file imports neither JAX nor the JAX package,
@@ -900,7 +901,8 @@ def test_flash_attention_wrapper_refuses_bad_inputs(cuda):
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "granite-3-8b",
-                                  "qwen3-8b"])
+                                  "qwen3-8b", "qwen2-moe-a2.7b",
+                                  "mixtral-8x22b"])
 def test_lm_smoke_on_card_matches_cpu(cuda, arch):
     """The SMOKE model (f32) on the card against the same weights on the
     CPU: the forward (kernel against twin), then prefill of 64 tokens and 4
@@ -934,6 +936,56 @@ def test_lm_smoke_on_card_matches_cpu(cuda, arch):
         cl, caches["cpu"] = tr.decode_step(cpu, nxt, cfg, caches["cpu"])
     torch.testing.assert_close(gl.cpu(), cl, **tol)
     assert tk.LAUNCHES["flash_attention"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_card_matches_cpu(cuda, arch, dtype):
+    """The SMOKE MoE layer on the card against the same weights on the CPU,
+    at a capacity that drops: the dispatch of the same router logits
+    exact, ``out`` within 1e-5 in f32 (TF32 off) and 2e-2 in bf16, ``aux``
+    within 1e-6; two calls on the card bit-identical (no float atomics)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = get_arch(arch).smoke_config.d_model
+    cfg = dataclasses.replace(get_arch(arch).smoke_config.moe,
+                              capacity_factor=0.5, groups=2)
+    cpu = moe.init_moe(d, cfg, dtype,
+                       generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    card = moe.init_moe(d, cfg, dtype,
+                        generator=torch.Generator().manual_seed(0),
+                        device="cpu").to(cuda)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 64, d)).astype(np.float32)).to(dtype)
+    logits = x.reshape(2, -1, d).float() @ cpu.router
+    r_cpu, r_card = moe.route(logits, cfg), moe.route(logits.to(cuda), cfg)
+    assert torch.equal(r_card.slot_tok.cpu(), r_cpu.slot_tok)
+    assert torch.equal(r_card.token_slot.cpu(), r_cpu.token_slot)
+    assert int(r_card.n_dropped) == int(r_cpu.n_dropped) > 0
+    out, aux = moe.moe_ffn(card, x.to(cuda), cfg)
+    again, aux2 = moe.moe_ffn(card, x.to(cuda), cfg)
+    assert torch.equal(out, again) and torch.equal(aux, aux2)
+    exp, exp_aux = moe.moe_ffn(cpu, x, cfg)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.cpu().float(), exp.float(), rtol=tol,
+                               atol=tol)
+    assert abs(float(aux) - float(exp_aux)) <= 1e-6
+
+
+def test_moe_lm_two_forwards_on_card_are_bit_identical(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    cfg = get_arch("qwen2-moe-a2.7b").smoke_config
+    model = tr.init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 128)).astype(np.int32)).to(cuda)
+    a, _, aux_a = tr.forward(model, toks, cfg)
+    b, _, aux_b = tr.forward(model, toks, cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
 
 
 # ---------------------------------------------------------------------------

@@ -81,15 +81,48 @@ def _make_sketch(**kw):
     return make_sketch(2, 1 << 8, **kw).table
 
 
-def _smoke_lm():
+def _smoke_lm(arch="h2o-danube-1.8b"):
     from repro_torch.configs import get_arch
-    return get_arch("h2o-danube-1.8b").smoke_config
+    return get_arch(arch).smoke_config
 
 
 def _init_params(**kw):
     from repro_torch.models.transformer import init_params
     gen = torch.Generator()
     return init_params(_smoke_lm(), generator=gen, **kw).embed
+
+
+def _init_moe_lm(**kw):
+    from repro_torch.models.transformer import init_params
+    return init_params(_smoke_lm("qwen2-moe-a2.7b"), generator=torch.Generator(),
+                       **kw).blocks[0].moe.shared.gate
+
+
+def _init_moe(**kw):
+    from repro_torch.models.moe import init_moe
+    cfg = _smoke_lm("mixtral-8x22b").moe
+    return init_moe(16, cfg, torch.float32, generator=torch.Generator(),
+                    **kw).w_down
+
+
+def _moe_from_jax(**kw):
+    from repro_torch.models.convert import moe_from_jax
+    from repro_torch.models.moe import init_moe
+    cfg = _smoke_lm("qwen2-moe-a2.7b").moe
+    tree = {n: t.numpy() for n, t in init_moe(
+        16, cfg, torch.float32, generator=torch.Generator(),
+        device="cpu").state_dict().items()}
+    tree["shared"] = {n.split(".")[1]: tree.pop(n) for n in list(tree)
+                      if n.startswith("shared.")}
+    return moe_from_jax(tree, 16, cfg, torch.float32, **kw).router
+
+
+def _make_moe_inputs(**kw):
+    import numpy as np
+    from repro_torch.models.api import ShapeCell, make_inputs
+    cell = ShapeCell("d", "decode", {"batch": 2, "seq": 16})
+    return make_inputs(np.random.default_rng(0), _smoke_lm("mixtral-8x22b"),
+                       cell, **kw)["caches"]["v"]
 
 
 def _init_caches(**kw):
@@ -118,7 +151,8 @@ def _params_from_jax(**kw):
                                   _make_region_cooc_store,
                                   _make_region_table, _make_sketch,
                                   _init_params, _init_caches, _make_inputs,
-                                  _params_from_jax],
+                                  _params_from_jax, _init_moe_lm, _init_moe,
+                                  _moe_from_jax, _make_moe_inputs],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_state_constructors_default_to_cuda_and_refuse_without_it(
         monkeypatch, make):

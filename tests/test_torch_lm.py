@@ -19,7 +19,9 @@ Tolerances, and why:
     sides compute in f32 and differ only in summation order (XLA's CPU dots
     against torch's), ~1e-6 relative per op over two layers; 1e-4 leaves
     two decades and still fails on one wrong key in a 16-key window (a
-    ~1/16 change of an attention row). Cache positions are exact.
+    ~1/16 change of an attention row). Cache positions are exact. The MoE
+    models' router loss (the mean over layers) within 1e-6, as
+    ``tests/test_torch_moe.py`` holds one layer's.
 """
 import dataclasses
 
@@ -31,6 +33,7 @@ import torch
 
 from repro.configs import get_arch as j_get_arch
 from repro.kernels import ops as jops
+from repro.models import api as j_api
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.models import kv_cache as jkv
@@ -43,7 +46,18 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import api, kv_cache, layers, transformer as tr
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 
-ARCHS = ["h2o-danube-1.8b", "granite-3-8b", "qwen3-8b"]
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax_executables():
+    """XLA:CPU's compiled executables hold memory maps of the worker
+    process, which count against its map limit; the tier-1 run's
+    JAX-heavy workers come close to it, so this file releases its own."""
+    yield
+    jax.clear_caches()
+
+
+ARCHS = ["h2o-danube-1.8b", "granite-3-8b", "qwen3-8b", "qwen2-moe-a2.7b",
+         "mixtral-8x22b"]
 SWEEP = [
     # (B, Hq, Hkv, Tq, Tk, D, causal, window): tests/test_kernels.py's sweep
     (2, 4, 2, 64, 64, 32, True, 0),
@@ -219,12 +233,15 @@ def test_forward_matches_jax_with_and_without_pallas(arch, changes):
     toks = _tokens(tcfg)
     tk.reset_launches()
     got, caches, aux = tr.forward(tparams, torch.from_numpy(toks), tcfg)
-    assert caches is None and aux == 0.0
+    assert caches is None
     assert tk.LAUNCHES["flash_attention"] == 0   # CPU: the plain twin
     for pallas in (False, True):
         cfg = dataclasses.replace(jcfg, use_pallas_attention=pallas)
-        exp = jtr.forward(jparams, jnp.asarray(toks), cfg)[0]
+        exp, _, j_aux = jtr.forward(jparams, jnp.asarray(toks), cfg)
         _close(got.numpy(), exp, f"logits, use_pallas_attention={pallas}")
+        np.testing.assert_allclose(float(aux), float(j_aux), rtol=0,
+                                   atol=1e-6)
+    assert (aux == 0.0) == (tcfg.moe is None)
     if tcfg.padded_vocab != tcfg.vocab_size:
         assert (got[..., tcfg.vocab_size:] < -1e29).all()
 
@@ -288,10 +305,45 @@ def test_serve_fn_and_make_inputs_drive_prefill_and_decode():
     with pytest.raises(NotImplementedError):
         api.serve_fn(cfg, spec.cell("train_4k"))
     with pytest.raises(NotImplementedError):
-        get_arch("mixtral-8x22b")
+        api.make_inputs(rng, cfg, spec.cell("train_4k"), device="cpu")
     with pytest.raises(NotImplementedError):
-        tr.init_params(dataclasses.replace(cfg, moe=object()),
-                       generator=torch.Generator(), device="cpu")
+        get_arch("gat-cora")
+    with pytest.raises(NotImplementedError):
+        api.serve_fn(object(), pre)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b"])
+def test_serve_fn_drives_moe_models_like_jax(arch):
+    """An MoE model through ``adapt_lm_config``, ``make_inputs`` and
+    ``serve_fn``: prefill then one decode step, against the JAX model on the
+    same weights and tokens (f32, 1e-4)."""
+    spec = get_arch(arch)
+    jspec = j_get_arch(arch)
+    pre = api.ShapeCell("p", "prefill", {"batch": 2, "seq": 32,
+                                         "cache_len": 40})
+    dec = api.ShapeCell("d", "decode", {"batch": 2, "seq": 32,
+                                        "cache_len": 40})
+    for dp in (1, 2, 3):
+        for cell in (pre, dec):
+            assert api.adapt_lm_config(spec.smoke_config, cell, dp).moe \
+                .groups == j_api.adapt_lm_config(jspec.smoke_config, cell,
+                                                 dp).moe.groups
+    cfg = api.adapt_lm_config(spec.smoke_config, pre, dp_size=2)
+    assert cfg.moe.groups == 2
+    jcfg = j_api.adapt_lm_config(jspec.smoke_config, pre, dp_size=2)
+    jparams = jtr.init_params(jax.random.PRNGKey(7), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    inp = api.make_inputs(np.random.default_rng(0), cfg, pre, device="cpu")
+    logits, caches = api.serve_fn(cfg, pre)(params, inp["caches"],
+                                            inp["tokens"])
+    exp, jcache = j_api.serve_fn(jcfg, pre)(
+        jparams, jtr.init_caches(jcfg, 2, 40), jnp.asarray(inp["tokens"]))
+    _close(logits.numpy(), exp, "prefill logits")
+    step = torch.from_numpy(np.array(exp[:, -1].argmax(-1), np.int32)[:, None])
+    logits, caches = api.serve_fn(cfg, dec)(params, caches, step)
+    exp, _ = j_api.serve_fn(jcfg, dec)(jparams, jcache, jnp.asarray(step))
+    _close(logits.numpy(), exp, "decode logits")
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +376,15 @@ def test_init_params_matches_jax_shapes_dtypes_and_spread(arch):
     jcfg = j_get_arch(arch).smoke_config
     tparams = tr.init_params(tcfg, generator=torch.Generator().manual_seed(1),
                              device="cpu")
-    assert {p.dtype for p in tparams.parameters()} == {tcfg.torch_dtype}
+    assert {p.dtype for n, p in tparams.named_parameters()
+            if not n.endswith("moe.router")} == {tcfg.torch_dtype}
+    bf16 = tr.init_params(dataclasses.replace(tcfg, dtype="bfloat16"),
+                          generator=torch.Generator().manual_seed(1),
+                          device="cpu")
+    assert {n: p.dtype for n, p in bf16.named_parameters()
+            if p.dtype != torch.bfloat16} == {
+        f"blocks.{i}.moe.router": torch.float32
+        for i in range(tcfg.n_layers) if tcfg.moe}
     got = jax.tree_util.tree_leaves_with_path(params_to_numpy(tparams))
     exp = dict(jax.tree_util.tree_leaves_with_path(
         jax.tree.map(np.asarray, jtr.init_params(jax.random.PRNGKey(1),
