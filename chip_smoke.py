@@ -9,6 +9,7 @@
     python3 chip_smoke.py --fleet-only
     python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --moe-only
+    python3 chip_smoke.py --recsys-only
 
 Phases, each of which must pass:
 
@@ -78,7 +79,10 @@ Phases, each of which must pass:
      danube, granite, qwen3, qwen2-moe and mixtral SMOKE models (f32) on
      the card against the CPU: forward (and the MoE router loss), prefill
      and 4 decode steps (mixtral's runs the f32 kernel at head dim 16,
-     window 16);
+     window 16); the four recsys SMOKE models' serve (256 rows) and
+     retrieval (4,096 candidates) steps and the GAT SMOKE model on its four
+     cells (the two large graphs cut to 4,096 nodes) on the card against
+     the CPU, f32 with TF32 off, within the CPU tests' 1e-5 bars;
   4. the main paths at deployment scale — ``SearchAssistanceEngine.step``
      for 17 ticks (4 decay sweeps, 2 rank cycles), once with the hash cooc
      layout and once with the region layout, each with its kernels'
@@ -273,7 +277,28 @@ Phases, each of which must pass:
      ``MOE_BF16_REL_RMS``; last, ``flash_attention`` at the scoring
      forward's layer-0 q/k/v (head dim 128, causal) against its twin,
      with its time, bound, SDPA's time and the ptxas lines of its D-128
-     instantiation.
+     instantiation;
+ 14. the recsys and GNN serving paths — bst, xdeepfm, two-tower-retrieval
+     and bert4rec at their full ``CONFIG``s (f32, TF32 off), seeded random
+     weights made on the card (two-tower's tables 19.1 GiB), through
+     ``models.api.serve_fn``: serve_p99 (512 rows), serve_bulk (262,144;
+     bert4rec's is skipped and says why: 33.5 PFLOP of vocabulary scores,
+     78 GiB of attention logits) and retrieval_cand (1M candidates; one
+     row for bert4rec); then gat-cora's ``gnn.forward`` through
+     ``adapt_config`` on full_graph_sm, molecule, minibatch_lg and
+     ogb_products (61,859,328 edges). Each cell runs on ``make_inputs``'
+     inputs (ids below 100) and on ids drawn from the seed uniformly over
+     each whole table or node set (a GAT's real edges valid, its padding
+     not). Printed per cell and input set, with the card's name and power
+     limit: ms (median of 3 synced runs, each run's ms), rows/s,
+     ``model_flops`` over the time and its share of the f32 peak, peak GiB,
+     whether the runs agree bit for bit (a GAT's run-to-run difference:
+     its segment sums use float atomics), and the card against the port's
+     CPU path on 64 rows (a recsys cell's first 64 rows or candidates,
+     two-tower's CPU holding only the table rows they touch; a GAT's nodes
+     0-63 on the subgraph that determines them, skipped and said so where
+     it holds over 2M edges), within 1e-5. No kernel lies on this path:
+     every launch count must stay 0.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -293,7 +318,9 @@ synthetic lanes and on the lanes its last rank cycle gave ``score_gate``.
 ``--tune-only`` builds them and runs phase 10 alone; ``--fleet-only``
 builds them and runs phase 11 alone; ``--sharded-only`` builds them and
 runs phase 12 alone; ``--moe-only`` builds them and runs the MoE SMOKE
-models of phase 3 and phase 13 alone.
+models of phase 3 and phase 13 alone; ``--recsys-only`` builds nothing
+(no kernel lies on its path) and runs the recsys and GNN SMOKE models of
+phase 3 and phase 14 alone.
 ``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
 DIR lies inside this checkout (a parent commit unpacked with ``git
 archive`` under ``build/``), so one call on one card profiles two trees.
@@ -4653,6 +4680,391 @@ def run_moe(dev, rows):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the recsys and GNN serving paths at full width.
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("bst", "xdeepfm", "two-tower-retrieval", "bert4rec")
+RECSYS_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
+GAT_CELLS = ("full_graph_sm", "molecule", "minibatch_lg", "ogb_products")
+RECSYS_SKIPS = {("bert4rec", "serve_bulk"): (
+    "262,144 rows x 1,000,002 vocabulary scores are 33.5 PFLOP, and the "
+    "encoder's attention logits [262144, 2, 200, 200] f32 take 78 GiB")}
+# The cell of each architecture run once more under the profiler, on the
+# seeded inputs (xdeepfm's serve_bulk: its retrieval_cand is the same
+# arithmetic on 3.8x the rows).
+PROFILED = {"bst": "retrieval_cand", "xdeepfm": "serve_bulk",
+            "two-tower-retrieval": "serve_bulk", "bert4rec": "serve_p99",
+            "gat-cora": "ogb_products"}
+CHECK_ROWS = 64          # rows held card against CPU in each cell
+CHECK_MAX_EDGES = 2_000_000   # GAT: the CPU's share of a check, at most
+RECSYS_REPS = 3
+
+
+def _close(label, got, exp, scale_atol=False):
+    """Card against CPU (f32, TF32 off) within 1e-5: a tensor (its atol
+    scaled by max |exp| where ``scale_atol``), or a top-k (values; ids
+    wherever a value stands more than 1e-5 from each neighbour or ties it
+    exactly on both sides). Returns the max abs error."""
+    import numpy as np
+    import torch
+    if not isinstance(exp, tuple):
+        atol = 1e-5 * (float(exp.abs().max()) if scale_atol else 1.0)
+        torch.testing.assert_close(got.cpu(), exp, rtol=1e-5, atol=atol,
+                                   msg=lambda m: f"{label}: {m}")
+        return float((got.cpu() - exp).abs().max())
+    gv, gi = (t.cpu().numpy() for t in got)
+    ev, ei = (t.numpy() for t in exp)
+    np.testing.assert_allclose(gv, ev, rtol=1e-5, atol=1e-5, err_msg=label)
+    gap = np.diff(ev, axis=-1)
+    ok = (np.abs(gap) > 1e-5 * np.maximum(np.abs(ev[..., 1:]), 1.0)) | (
+        (gap == 0) & (np.diff(gv) == 0))
+    clear = np.ones_like(ev, bool)
+    clear[..., 1:] &= ok
+    clear[..., :-1] &= ok
+    if not (gi[clear] == ei[clear]).all():
+        raise AssertionError(f"{label}: top-k ids differ where clear")
+    return float(np.abs(gv - ev).max())
+
+
+def small_recsys(dev) -> None:
+    """Phase 3 for the recsys and GNN families: each SMOKE model (f32, TF32
+    off) on the card against the same weights on the CPU, within the CPU
+    tests' 1e-5 bars: the four recsys models' serve and retrieval steps,
+    and the GAT through ``adapt_config`` on each of its four cells (the two
+    large graphs cut to 4,096 nodes and 16,384 edges)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import gat_cora, get_arch
+    from repro_torch.models import api, gnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = lambda: torch.Generator().manual_seed(SEED)
+    for arch in RECSYS_ARCHS:
+        cfg = get_arch(arch).smoke_config
+        cpu = api.init_params(cfg, generator=gen(), device="cpu")
+        card = api.init_params(cfg, generator=gen(), device="cpu").to(dev)
+        errs = []
+        for cell in (api.ShapeCell("s", "serve", {"batch": 256}),
+                     api.ShapeCell("r", "retrieval",
+                                   {"batch": 1, "n_candidates": 4096})):
+            b = api.make_inputs(np.random.default_rng(SEED), cfg, cell,
+                                device="cpu")["batch"]
+            fn = api.serve_fn(cfg, cell)
+            errs.append(_close(f"{arch} SMOKE {cell.kind}",
+                               fn(card, {k: v.to(dev) for k, v in b.items()}),
+                               fn(cpu, b), arch == "xdeepfm"))
+        log(f"  {arch} SMOKE, card vs CPU: serve (256 rows) and retrieval "
+            f"(4,096 candidates), max abs error {max(errs)!r} (1e-5)")
+    errs = {}
+    for cell in gat_cora.SHAPES:
+        dims = dict(cell.dims)
+        if dims["n_edges"] > 16384:
+            dims.update(n_nodes=4096, n_edges=16384, n_edges_padded=16384)
+        cell = dataclasses.replace(cell, dims=dims)
+        cfg = gat_cora.adapt_config(gat_cora.SMOKE, cell)
+        cpu = api.init_params(cfg, generator=gen(), device="cpu")
+        card = api.init_params(cfg, generator=gen(), device="cpu").to(dev)
+        b = api.make_inputs(np.random.default_rng(SEED), cfg, cell,
+                            device="cpu")["batch"]
+        errs[cell.name] = _close(
+            f"gat-cora SMOKE {cell.name}",
+            gnn.forward(card, {k: v.to(dev) for k, v in b.items()}, cfg),
+            gnn.forward(cpu, b, cfg))
+    log(f"  gat-cora SMOKE, card vs CPU, forward on its four cells: max abs "
+        f"error {errs} (1e-5)")
+
+
+def seeded_batch(cfg, cell, dev, gen):
+    """A cell's inputs with every id drawn uniformly over its whole table
+    (or node set) on the card: the gathers and scatters a deployment makes.
+    Features are standard normal; a GAT's first ``n_edges`` edges are
+    valid, the padding not."""
+    import torch
+    from repro_torch.models import api
+    specs = api.input_specs(cfg, cell)["batch"]
+    hi = api.id_ranges(cfg, cell)
+    out = {}
+    for k, s in sorted(specs.items()):
+        if s.dtype == torch.int32:
+            out[k] = torch.randint(0, hi[k], s.shape, generator=gen,
+                                   device=dev, dtype=torch.int32)
+        elif s.dtype == torch.bool:
+            out[k] = torch.rand(s.shape, generator=gen, device=dev) < 0.5
+        else:
+            out[k] = torch.randn(s.shape, generator=gen, device=dev)
+    for k in ("fields", "fields_ctx"):
+        if k in out:
+            out[k] += (torch.arange(out[k].shape[1], device=dev,
+                                    dtype=torch.int32) * cfg.field_vocab)
+    if "edge_valid" in out:
+        out["edge_valid"] = torch.arange(out["edge_valid"].shape[0],
+                                         device=dev) < cell.dims["n_edges"]
+    return out
+
+
+def _timed_runs(fn, reps=RECSYS_REPS):
+    """``reps`` synced runs: (the outputs of the first and last, the ms of
+    each)."""
+    outs, ms = [], []
+    for _ in range(reps):
+        out, t = _synced_ms(fn)
+        ms.append(t)
+        outs = [outs[0] if outs else out, out]
+    return outs, ms
+
+
+def _check_rows_recsys(cfg, cell, model, batch, out, cpu):
+    """The card against the port's CPU path on the cell's first 64 rows
+    (for a retrieval cell the first 64 candidates): ``cpu`` holds the
+    model's parameters on the host; for two-tower (``cpu`` None) only the
+    table rows those ids touch reach it (ids renumbered, 0 kept as
+    padding). Where the cell's rows are
+    independent the full run's first 64 outputs are held, else the card's
+    own run on those rows."""
+    import torch
+    from repro_torch.models import api, recsys
+    n = CHECK_ROWS
+    if "cand_ids" in batch:
+        rows = dict(batch, cand_ids=batch["cand_ids"][:n])
+    else:
+        rows = {k: v[:n] for k, v in batch.items()}
+    fn = api.serve_fn(cfg, cell)
+    if isinstance(cfg, recsys.TwoTowerConfig):
+        users, u_at = torch.unique(rows["user_id"], return_inverse=True)
+        keys = [k for k in ("hist", "pos_item", "cand_ids") if k in rows]
+        items, i_at = torch.unique(torch.cat(
+            [torch.zeros(1, dtype=torch.int32, device=users.device)]
+            + [rows[k].reshape(-1) for k in keys]), return_inverse=True)
+        off = 1
+        host = {"user_id": u_at.int()}
+        for k in keys:
+            m = rows[k].numel()
+            host[k] = i_at[off:off + m].reshape(rows[k].shape).int()
+            off += m
+        sub = dataclasses.replace(cfg, n_users=len(users), n_items=len(items))
+        cpu = api.init_params(sub, generator=None, device="cpu")
+        state = {k: v.cpu() for k, v in model.state_dict().items()
+                 if "emb" not in k}
+        state["user_emb"] = model.user_emb[users].cpu()
+        state["item_emb"] = model.item_emb[items].cpu()
+        cpu.load_state_dict(state)
+        host = {k: v.cpu() for k, v in host.items()}
+        cpu_cfg = sub
+    else:
+        host = {k: v.cpu() for k, v in rows.items()}
+        cpu_cfg = cfg
+    exp = api.serve_fn(cpu_cfg, cell)(cpu, host)
+    independent = cell.kind == "serve" or not isinstance(
+        cfg, (recsys.TwoTowerConfig, recsys.Bert4RecConfig))
+    if independent:
+        got = tuple(t[:n] for t in out) if isinstance(out, tuple) \
+            else out[:n]
+    else:
+        got = fn(model, rows)
+    return _close(f"{cfg.name} {cell.name} rows", got, exp,
+                  isinstance(cfg, recsys.XDeepFMConfig))
+
+
+def _check_nodes_gat(cfg, model, batch, out):
+    """The card's GAT logits of nodes 0-63 against the port's CPU path on
+    the subgraph that determines them: the valid edges into those nodes and
+    into the sources of those edges (both layers' in-edges), with their
+    endpoints' features. Returns (max abs error, edges) or (None, edges)
+    where the subgraph holds more than ``CHECK_MAX_EDGES`` edges."""
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.models.convert import model_from_jax, model_to_numpy
+    src, dst = batch["src"].long(), batch["dst"].long()
+    valid = batch["edge_valid"]
+    targets = torch.arange(CHECK_ROWS, device=src.device)
+    s1 = torch.unique(src[valid & torch.isin(dst, targets)])
+    keep = valid & torch.isin(dst, torch.cat([targets, s1]))
+    n_edges = int(keep.sum())
+    if n_edges > CHECK_MAX_EDGES:
+        return None, n_edges
+    e_src, e_dst = src[keep], dst[keep]
+    nodes = torch.unique(torch.cat([targets, e_src, e_dst]))
+    sub = {"x": batch["x"][nodes].cpu(),
+           "src": torch.searchsorted(nodes, e_src).int().cpu(),
+           "dst": torch.searchsorted(nodes, e_dst).int().cpu()}
+    cpu = model_from_jax(model_to_numpy(model), cfg, device="cpu")
+    exp = gnn.forward(cpu, sub, cfg)[torch.searchsorted(nodes, targets).cpu()]
+    return _close(f"{cfg.name} nodes", out[:CHECK_ROWS], exp), n_edges
+
+
+def _cell_line(arch, cell, inputs, ms, rows, flops, peak, extra):
+    rec = {"ms": statistics.median(ms), "runs_ms": ms, "rows": rows,
+           "rows_per_s": rows / statistics.median(ms) * 1e3,
+           "model_flops": flops,
+           "tflop_per_s": flops / statistics.median(ms) / 1e9,
+           "f32_peak_share": flops / (statistics.median(ms) * 1e-3)
+           / F32_OPS_PER_S, "peak_gib": peak, **extra}
+    log(f"[14] {arch} {cell.name} ({inputs}): {json.dumps(rec)}")
+
+
+def recsys_arch(dev, arch, card):
+    """One recsys architecture at its full CONFIG on the card: each cell on
+    ``make_inputs``' inputs and on ids drawn uniformly over the tables."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.models.convert import model_from_jax, model_to_numpy
+    spec = get_arch(arch)
+    cfg = spec.config
+    t0 = time.perf_counter()
+    model = api.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[14] {arch}: {cfg} ({spec.source}), {n_params} parameters "
+        f"({torch.cuda.memory_allocated() / 2**30:.3f} GiB) made on the card "
+        f"in {time.perf_counter() - t0:.3f} s ({card})")
+    # the CPU path's copy of the weights (two-tower's 19.1 GiB of tables
+    # stay on the card: each check copies the rows it reads)
+    cpu = None if arch == "two-tower-retrieval" else model_from_jax(
+        model_to_numpy(model), cfg, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name in RECSYS_CELLS:
+        cell = spec.cell(name)
+        if (arch, name) in RECSYS_SKIPS:
+            log(f"[14] {arch} {name}: skipped, not run on the card: "
+                f"{RECSYS_SKIPS[arch, name]}")
+            continue
+        fn = api.serve_fn(cfg, cell)
+        rows = cell.dims["n_candidates"] if cell.kind == "retrieval" and \
+            arch != "bert4rec" else cell.dims["batch"]
+        for inputs in ("make_inputs", "seeded"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            batch = api.make_inputs(np.random.default_rng(SEED), cfg, cell,
+                                    device=dev)["batch"] \
+                if inputs == "make_inputs" else \
+                seeded_batch(cfg, cell, dev, gen)
+            torch.cuda.synchronize()
+            made_ms = (time.perf_counter() - t0) * 1e3
+            with torch.inference_mode():
+                (first, out), ms = _timed_runs(lambda: fn(model, batch))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            leaves = out if isinstance(out, tuple) else (out,)
+            if not all(bool(torch.isfinite(t).all()) for t in leaves
+                       if t.is_floating_point()):
+                raise AssertionError(f"{arch} {name} ({inputs}): not finite")
+            shape = [tuple(t.shape) for t in leaves]
+            exp_shape = [(cell.dims["batch"], 100)] * 2 if isinstance(
+                out, tuple) else [(rows,)]
+            if shape != exp_shape:
+                raise AssertionError(f"{arch} {name}: shape {shape}")
+            same = all(torch.equal(a, b) for a, b in zip(
+                first if isinstance(first, tuple) else (first,), leaves))
+            with torch.inference_mode():
+                err = _check_rows_recsys(cfg, cell, model, batch, out, cpu)
+                if inputs == "seeded" and PROFILED[arch] == name:
+                    _profiled(f"{arch} {name}", lambda: fn(model, batch))
+            _cell_line(arch, cell, inputs, ms, rows,
+                       api.model_flops(cfg, cell), peak,
+                       {"inputs_made_ms": made_ms, "shape": shape,
+                        "runs_bit_identical": same,
+                        "check_rows_max_abs_err": err})
+            del batch, out, first
+    del model
+    torch.cuda.empty_cache()
+
+
+def gat_cells(dev, card):
+    """gat-cora's CONFIG through ``adapt_config`` on each of its four cells,
+    on ``make_inputs``' inputs and on edges drawn uniformly over the node
+    set."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import gat_cora
+    from repro_torch.models import api, gnn
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name in GAT_CELLS:
+        cell = gat_cora.SPEC.cell(name)
+        cfg = gat_cora.adapt_config(gat_cora.CONFIG, cell)
+        model = api.init_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+            device=dev)
+        d = cell.dims
+        log(f"[14] gat-cora {name}: {cfg}; {d['n_nodes']} nodes, "
+            f"{d['n_edges_padded']} edges ({d['n_edges']} real) ({card})")
+        for inputs in ("make_inputs", "seeded"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            batch = api.make_inputs(np.random.default_rng(SEED), cfg, cell,
+                                    device=dev)["batch"] \
+                if inputs == "make_inputs" else \
+                seeded_batch(cfg, cell, dev, gen)
+            torch.cuda.synchronize()
+            made_ms = (time.perf_counter() - t0) * 1e3
+            with torch.inference_mode():
+                (first, out), ms = _timed_runs(
+                    lambda: gnn.forward(model, batch, cfg))
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                if out.shape != (d["n_nodes"], cfg.n_classes) or \
+                        not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"gat-cora {name}: output")
+                # the segment sums add a node's in-edges by float atomics
+                # in no fixed order: a random walk of sqrt(in-degree)
+                # roundings of 2^-24 relative, bounded at 8 times that
+                indeg = int(torch.bincount(
+                    batch["dst"][batch["edge_valid"]].long()).max())
+                drift = float((out - first).abs().max())
+                drift_bar = 8 * indeg ** 0.5 * 2.0 ** -24 * max(
+                    1.0, float(out.abs().max()))
+                if drift > drift_bar:
+                    raise AssertionError(f"gat-cora {name}: runs differ by "
+                                         f"{drift!r} (bar {drift_bar!r})")
+                err, sub_edges = _check_nodes_gat(cfg, model, batch, out)
+                if inputs == "seeded" and PROFILED["gat-cora"] == name:
+                    _profiled(f"gat-cora {name}",
+                              lambda: gnn.forward(model, batch, cfg))
+            _cell_line(
+                "gat-cora", cell, inputs, ms, d["n_nodes"],
+                api.model_flops(cfg, cell), peak,
+                {"inputs_made_ms": made_ms,
+                 "edges_per_s": d["n_edges_padded"] / statistics.median(ms)
+                 * 1e3, "max_in_degree": indeg,
+                 "run_to_run_max_abs_diff": drift,
+                 "run_to_run_bar": drift_bar,
+                 "check_nodes_max_abs_err": err,
+                 "check_subgraph_edges": sub_edges})
+            if err is None:
+                log(f"  gat-cora {name} ({inputs}): card vs CPU not run: "
+                    f"nodes 0-63 and their sources take {sub_edges} edges "
+                    f"(limit {CHECK_MAX_EDGES})")
+            del batch, out, first
+        del model
+    torch.cuda.empty_cache()
+
+
+def run_recsys(dev, card: str):
+    """Phase 14: the four recsys models and the GAT at their full CONFIGs,
+    seeded random weights made on the card. Returns the phase's launch
+    counts (no kernel lies on this path: all 0)."""
+    import torch
+    from repro_torch import kernels as tk
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"[14] recsys and GNN serving paths at full width ({card}); ms: "
+        f"median of {RECSYS_REPS} synced runs; f32 peak "
+        f"{F32_OPS_PER_S!r} op/s; TF32 off")
+    tk.reset_launches()
+    for arch in RECSYS_ARCHS:
+        recsys_arch(dev, arch, card)
+    gat_cells(dev, card)
+    launches = dict(tk.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"recsys/GNN path launched kernels {launches}")
+    log(f"  recsys/GNN launches (none expected): {launches}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-region-only", action="store_true",
@@ -4678,6 +5090,10 @@ def main() -> int:
                     help="build the kernels and run the MoE SMOKE models "
                          "card vs CPU and phase 13 (the MoE LM serving "
                          "path), and nothing else")
+    ap.add_argument("--recsys-only", action="store_true",
+                    help="run the recsys and GNN SMOKE models card vs CPU "
+                         "and phase 14 (the recsys and GNN serving paths), "
+                         "and nothing else")
     ap.add_argument("--root", default=str(ROOT),
                     help="with --profile-region-only or --profile-hash-only:"
                          " a directory inside this checkout whose "
@@ -4712,6 +5128,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     t_start = time.perf_counter()
+    if args.recsys_only:    # no kernel lies on this path: nothing to build
+        log(f"[1] card: {card} | torch {torch.__version__} cuda "
+            f"{torch.version.cuda}")
+        log("[3] recsys and GNN SMOKE models on the card vs the CPU")
+        small_recsys(dev)
+        run_recsys(dev, card)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if (args.flash_crowd_only or args.tune_only or args.fleet_only
             or args.sharded_only or args.moe_only):
         log(f"[1] card: {card} | torch {torch.__version__} cuda "
@@ -4780,6 +5204,10 @@ def main() -> int:
     log("[3] LM SMOKE models on the card vs the CPU")
     small_lm(dev)
     log(f"  LM SMOKE parity took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("[3] recsys and GNN SMOKE models on the card vs the CPU")
+    small_recsys(dev)
+    log(f"  recsys/GNN SMOKE parity took {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. main paths at deployment scale ----
     from repro_torch.data.stream import SyntheticStream
@@ -4891,6 +5319,10 @@ def main() -> int:
 
     # ---- 13. the MoE LM serving path ----
     launches["moe"] = run_moe(dev, rows)
+    torch.cuda.empty_cache()
+
+    # ---- 14. the recsys and GNN serving paths ----
+    launches["recsys"] = run_recsys(dev, card)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

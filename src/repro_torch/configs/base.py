@@ -1,4 +1,5 @@
-"""The LM shape cells (a copy of the JAX package's `lm_shapes`)."""
+"""Shared shape-cell builders (copies of the JAX package's ``lm_shapes``
+and ``recsys_shapes``)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -21,4 +22,14 @@ def lm_shapes(*, swa: bool) -> Tuple[ShapeCell, ...]:
         ShapeCell("long_500k", "decode",
                   {"batch": 1, "seq": 524288, "cache_len": 524288},
                   skip=None if swa else FULL_ATTN_SKIP),
+    )
+
+
+def recsys_shapes(n_candidates: int = 1_000_000) -> Tuple[ShapeCell, ...]:
+    return (
+        ShapeCell("train_batch", "train", {"batch": 65536}),
+        ShapeCell("serve_p99", "serve", {"batch": 512}),
+        ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+        ShapeCell("retrieval_cand", "retrieval",
+                  {"batch": 1, "n_candidates": n_candidates}),
     )

@@ -126,6 +126,14 @@ class SyntheticStream:
             m = (self.topic == t).astype(np.float64) * self.base_p
             s = m.sum()
             self._topic_p.append(m / s if s > 0 else self.base_p)
+        # ``rng.choice(n, size, p=p)`` looks ``rng.random(size)`` up in
+        # p's cumulative sum over its last entry; the tweets' topic draws
+        # do the same with these, one ``random`` call for every tweet
+        self._topic_cdf = []
+        for p_t in self._topic_p:
+            cdf = p_t.cumsum()
+            cdf /= cdf[-1]
+            self._topic_cdf.append(cdf)
 
         # --- events: append their terms to the vocab space
         self.event_term_idx: List[np.ndarray] = []
@@ -270,9 +278,14 @@ class SyntheticStream:
         rest = ~t_assigned
         if rest.any():
             topics = rng.integers(0, cfg.n_topics, size=int(rest.sum()))
-            picks = np.empty((int(rest.sum()), W), np.int64)
-            for i, tpc in enumerate(topics):
-                picks[i] = rng.choice(self.cfg.vocab_size, size=W, p=self._topic_p[tpc])
+            # the numbers one rng.choice(vocab_size, size=W, p=topic_p) a
+            # tweet would draw, in the same order
+            u = rng.random((len(topics), W))
+            picks = np.empty((len(topics), W), np.int64)
+            for tpc in np.unique(topics):
+                m = topics == tpc
+                picks[m] = self._topic_cdf[tpc].searchsorted(u[m],
+                                                             side="right")
             tw_idx[rest] = picks
         grams = np.zeros((T, cfg.tweet_grams), np.uint64)
         g = min(W, cfg.tweet_grams)

@@ -40,7 +40,9 @@ qstore sweep), ``chain_find``, ``region_rank`` and ``bucket_topk``
 (:data:`PATH_KERNELS`). The spelling job runs ``edit_distance``; the LM's
 cache-free forward, dense or MoE, runs ``flash_attention`` once per layer
 (its prefill and decode go through the KV cache in plain torch, as in JAX;
-the MoE layer is plain torch, as it is ``jnp`` in JAX).
+the MoE layer is plain torch, as it is ``jnp`` in JAX). The recsys and
+GNN serving paths launch none: no Pallas kernel lies on them in JAX either
+(``jnp.take``, einsums, segment ops and ``lax.top_k``).
 """
 from __future__ import annotations
 
@@ -51,8 +53,8 @@ import torch
 KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk", "chain_find",
            "region_rank", "assoc_score", "edit_distance", "flash_attention")
 
-# The kernels each cooc layout's main path, the spelling job and the dense
-# and MoE LMs' scoring forwards launch.
+# The kernels each cooc layout's main path, the spelling job, the dense
+# and MoE LMs' scoring forwards and the recsys and GNN serving paths launch.
 PATH_KERNELS = {
     "hash": ("decay_prune_multi", "score_gate", "bucket_topk"),
     "region": ("decay_prune_multi", "chain_find", "region_rank",
@@ -60,6 +62,8 @@ PATH_KERNELS = {
     "spelling": ("edit_distance",),
     "lm": ("flash_attention",),
     "moe": ("flash_attention",),
+    "recsys": (),
+    "gnn": (),
 }
 
 # Launch counts per kernel: incremented only where a wrapper launches its

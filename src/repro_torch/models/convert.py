@@ -7,6 +7,11 @@ other dtype, each cast to the dtype of the parameter it loads into: an MoE
 router stays f32 in a bf16 model) and unstacks ``blocks`` into the
 module's per-layer blocks. :func:`moe_from_jax` loads one ``init_moe``
 tree. :func:`params_to_numpy` goes the other way, for the tests.
+
+The GAT and recsys trees nest dicts and lists (``blocks``, ``cin``,
+``layers``); :func:`model_from_jax` loads one into the config's module
+(``blocks.0.wq``, ``cin.0``, ``layers.1.w``, ...) and
+:func:`model_to_numpy` gives the tree back.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from torch import nn
 
 from ..core.stores import resolve_device
+from . import api
 from .moe import MoE, MoEConfig
 from .transformer import LM, LMConfig
 
@@ -32,8 +38,10 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def _flat(tree, prefix="") -> Dict[str, np.ndarray]:
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) \
+        else tree.items()
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             out.update(_flat(v, f"{prefix}{k}."))
         else:
             out[f"{prefix}{k}"] = v
@@ -91,3 +99,30 @@ def params_to_numpy(model: LM) -> Dict:
             node = node.setdefault(p, {})
         node[leaf] = np.stack(arrs)
     return tree
+
+
+def model_from_jax(np_params, cfg, device="cuda") -> nn.Module:
+    """A GAT or recsys config's module holding the JAX tree's values."""
+    device = resolve_device(device)
+    module = api.init_params(cfg, generator=None, device=device)
+    return _load(module, _flat(np_params), device)
+
+
+def model_to_numpy(module: nn.Module):
+    """The JAX-shaped tree of a GAT or recsys module: dicts, with a list
+    where the names run 0, 1, ..."""
+    tree: Dict = {}
+    for name, t in module.state_dict().items():
+        *path, leaf = name.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = t.detach().cpu().numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)

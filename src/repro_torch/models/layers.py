@@ -1,5 +1,6 @@
-"""Shared LM layers: RMS norm, RoPE, GQA attention (full / sliding-window /
-qk-norm), SwiGLU. Port of the JAX package's ``models/layers.py``.
+"""Shared model layers: RMS and layer norm, RoPE, GQA attention (full /
+sliding-window / qk-norm), SwiGLU, the plain MLP. Port of the JAX package's
+``models/layers.py``.
 
 Parameters keep the JAX layout (``x @ w`` with ``w`` [d_in, d_out]) so that
 weights carry across unchanged (``models/convert.py``). Attention math
@@ -28,22 +29,65 @@ def rms_norm(x, scale, eps=1e-6):
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Statistics in f32, cast back to x's dtype, then ``* scale + bias``."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * scale + bias
+
+
+# ---------------------------------------------------------------------------
+# JAX's gather rules for ids out of range (torch indexing raises on the CPU
+# and asserts on the device instead)
+# ---------------------------------------------------------------------------
+
+def _wrap(idx, n: int):
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def take(table, idx):
+    """``jnp.take(table, idx, axis=0)`` in JAX's fill mode: an id in [-n, 0)
+    counts from the end; any other id outside [0, n) gives a NaN row."""
+    n = table.shape[0]
+    i = _wrap(idx, n)
+    bad = (i < 0) | (i >= n)
+    out = table[i.masked_fill(bad, 0)]
+    return out.masked_fill_(bad.view(bad.shape + (1,) * (out.dim()
+                                                         - bad.dim())),
+                            float("nan"))
+
+
+def clamped(idx, n: int):
+    """The ids JAX's bracket gather ``x[idx]`` reads: an id in [-n, 0)
+    counts from the end, then every id is clamped into [0, n)."""
+    return _wrap(idx, n).clamp_(0, n - 1)
+
+
 def param(t: torch.Tensor) -> nn.Parameter:
     """A serving weight: no gradient is tracked (the training slice, which
     is not ported yet, will ask for them)."""
     return nn.Parameter(t, requires_grad=False)
 
 
-def init_linear(gen, d_in, d_out, dtype, device, scale=None):
-    """Normal(0, 1) in f32 times ``scale`` (default ``1/sqrt(d_in)``), cast
-    to ``dtype``: the JAX ``init_linear`` distribution. Without a generator,
-    an uninitialised weight for a caller to fill (``convert.py``)."""
+def normal_param(gen, shape, scale, dtype, device) -> nn.Parameter:
+    """Normal(0, 1) in f32 times ``scale``, cast to ``dtype``: the JAX
+    inits' distribution. Without a generator, an uninitialised tensor for a
+    caller to fill (``convert.py``)."""
     if gen is None:
-        return param(torch.empty((d_in, d_out), dtype=dtype, device=device))
-    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+        return param(torch.empty(shape, dtype=dtype, device=device))
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device) * scale
     return param(w.to(dtype))
+
+
+def init_linear(gen, d_in, d_out, dtype, device, scale=None):
+    """A [d_in, d_out] weight, N(0, 1/d_in) unless ``scale`` is given (the
+    JAX ``init_linear``)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return normal_param(gen, (d_in, d_out), scale, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -230,3 +274,41 @@ class SwiGLU(nn.Module):
 
 def swiglu(params: SwiGLU, x):
     return (F.silu(x @ params.w_gate) * (x @ params.w_up)) @ params.w_down
+
+
+# ---------------------------------------------------------------------------
+# Plain MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """``w{i}`` [dims[i], dims[i+1]] and, with ``bias``, ``b{i}`` (zeros)."""
+
+    def __init__(self, dims, dtype, device, gen=None, bias=True):
+        super().__init__()
+        for i in range(len(dims) - 1):
+            setattr(self, f"w{i}", init_linear(gen, dims[i], dims[i + 1],
+                                               dtype, device))
+            if bias:
+                setattr(self, f"b{i}", param(torch.zeros(
+                    dims[i + 1], dtype=dtype, device=device)))
+
+
+def init_mlp(gen, dims, dtype, device, bias=True) -> MLP:
+    """Plain MLP given [d_in, h1, ..., d_out]."""
+    return MLP(dims, dtype, device, gen, bias)
+
+
+def n_mlp_layers(params: MLP) -> int:
+    return sum(1 for name, _ in params.named_parameters()
+               if name.startswith("w"))
+
+
+def mlp(params: MLP, x, n_layers: int, act=F.relu, final_act: bool = False):
+    for i in range(n_layers):
+        x = x @ getattr(params, f"w{i}")
+        b = getattr(params, f"b{i}", None)
+        if b is not None:
+            x = x + b
+        if i < n_layers - 1 or final_act:
+            x = act(x)
+    return x

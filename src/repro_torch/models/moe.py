@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.stores import resolve_device
-from .layers import init_linear, param
+from .layers import init_linear, normal_param
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,16 +44,6 @@ class MoEConfig:
     capacity_factor: float = 1.25
     aux_weight: float = 0.01       # read by the training slice (not yet)
     groups: int = 1                # dispatch groups
-
-
-def _experts(gen, shape, scale, dtype, device) -> nn.Parameter:
-    """Normal(0, 1) in f32 times ``scale``, cast to ``dtype``; without a
-    generator an uninitialised weight for a caller to fill."""
-    if gen is None:
-        return param(torch.empty(shape, dtype=dtype, device=device))
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=device) * scale
-    return param(w.to(dtype))
 
 
 class SharedExperts(nn.Module):
@@ -81,10 +71,10 @@ class MoE(nn.Module):
         E, F_ = cfg.n_experts, cfg.d_ff
         s = 1.0 / math.sqrt(d_model)
         self.router = init_linear(gen, d_model, E, torch.float32, device)
-        self.w_gate = _experts(gen, (E, d_model, F_), s, dtype, device)
-        self.w_up = _experts(gen, (E, d_model, F_), s, dtype, device)
-        self.w_down = _experts(gen, (E, F_, d_model), 1.0 / math.sqrt(F_),
-                               dtype, device)
+        self.w_gate = normal_param(gen, (E, d_model, F_), s, dtype, device)
+        self.w_up = normal_param(gen, (E, d_model, F_), s, dtype, device)
+        self.w_down = normal_param(gen, (E, F_, d_model),
+                                   1.0 / math.sqrt(F_), dtype, device)
         if cfg.n_shared_experts > 0:
             self.shared = SharedExperts(d_model, cfg, dtype, device, gen)
 

@@ -4,8 +4,9 @@ cooc layouts, bit-identical state across two runs on the card, overload
 control's fused flushes against per-tick steps on the card, a compaction
 fold on the card against the same fold on the CPU, the LM's SMOKE
 models (dense and MoE) and the MoE layer on the card against the CPU,
-the autotuner on the card, and the engine on the card against the port's
-reference engine.
+the autotuner on the card, the engine on the card against the port's
+reference engine, and the recsys and GAT SMOKE models, JAX's gather
+rules and the top-k tie order on the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips it where there is no
 card (the CPU test run). This file imports neither JAX nor the JAX package,
@@ -1055,3 +1056,98 @@ def test_card_engine_holds_the_contract_against_the_reference(cuda, layout,
     rep = parity_report(eng, ref)
     assert rep["ok"], rep["faults"]
     assert rep["suggestions"]["compared"] > 0
+
+
+def _assert_serve_close(got, exp, scale_atol=False):
+    """Recsys outputs, card against CPU (f32, TF32 off), within 1e-5: a
+    top-k's values, and its ids wherever the value stands more than 1e-5
+    from each neighbour or ties it exactly."""
+    if not isinstance(exp, tuple):
+        atol = 1e-5 * (float(exp.abs().max()) if scale_atol else 1.0)
+        torch.testing.assert_close(got.cpu(), exp, rtol=1e-5, atol=atol)
+        return
+    gv, gi = (t.cpu().numpy() for t in got)
+    ev, ei = (t.numpy() for t in exp)
+    np.testing.assert_allclose(gv, ev, rtol=1e-5, atol=1e-5)
+    gap = np.diff(ev, axis=-1)
+    ok = (np.abs(gap) > 1e-5 * np.maximum(np.abs(ev[..., 1:]), 1.0)) | (
+        (gap == 0) & (np.diff(gv) == 0))
+    clear = np.ones_like(ev, bool)
+    clear[..., 1:] &= ok
+    clear[..., :-1] &= ok
+    np.testing.assert_array_equal(gi[clear], ei[clear])
+
+
+@pytest.mark.parametrize("arch", ["bst", "xdeepfm", "bert4rec",
+                                  "two-tower-retrieval"])
+def test_recsys_smoke_on_card_matches_cpu(cuda, arch):
+    """Each recsys SMOKE model's serve and retrieval steps on the card
+    against the same weights and inputs on the CPU (f32, TF32 off)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).smoke_config
+    cpu = api.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    card = api.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu").to(cuda)
+    for cell in (api.ShapeCell("s", "serve", {"batch": 48}),
+                 api.ShapeCell("r", "retrieval",
+                               {"batch": 1, "n_candidates": 700})):
+        batch = api.make_inputs(np.random.default_rng(1), cfg, cell,
+                                device="cpu")["batch"]
+        fn = api.serve_fn(cfg, cell)
+        got = fn(card, {k: v.to(cuda) for k, v in batch.items()})
+        _assert_serve_close(got, fn(cpu, batch), arch == "xdeepfm")
+
+
+def test_gat_smoke_on_card_matches_cpu(cuda):
+    """The GAT SMOKE model through ``adapt_config`` on two cells, on the
+    card against the CPU (1e-5); the card's segment sums use float
+    atomics, so two runs on the card agree to 1e-6, not bit for bit."""
+    from repro_torch.configs import gat_cora
+    from repro_torch.models import api, gnn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for cell in (gat_cora.SPEC.cell("full_graph_sm"),
+                 gat_cora.SPEC.cell("molecule")):
+        cfg = gat_cora.adapt_config(gat_cora.SMOKE, cell)
+        cpu = api.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+        card = api.init_params(cfg,
+                               generator=torch.Generator().manual_seed(0),
+                               device="cpu").to(cuda)
+        batch = api.make_inputs(np.random.default_rng(2), cfg, cell,
+                                device="cpu")["batch"]
+        on_card = {k: v.to(cuda) for k, v in batch.items()}
+        got = gnn.forward(card, on_card, cfg)
+        torch.testing.assert_close(got.cpu(), gnn.forward(cpu, batch, cfg),
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(gnn.forward(card, on_card, cfg), got,
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_jax_gather_rules_and_topk_ties_on_card(cuda):
+    """Ids out of range neither assert on the card nor read out of bounds:
+    ``take`` gives NaN rows, ``clamped`` clamps, the segment ops drop; and
+    ``top_k`` breaks ties to the lowest index with NaN first, as on the
+    CPU."""
+    from repro_torch.models import gnn, layers
+    from repro_torch.models.moe import top_k
+    t = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    i = torch.tensor([0, 3, 4, -1, -4, -5, 100], dtype=torch.int32)
+    got = layers.take(t.to(cuda), i.to(cuda)).cpu()
+    np.testing.assert_array_equal(got.numpy(), layers.take(t, i).numpy())
+    assert torch.isnan(got[[2, 5, 6]]).all()
+    assert layers.clamped(i.to(cuda), 4).cpu().tolist() == [0, 3, 3, 3, 0, 0,
+                                                          3]
+    data = torch.arange(5, dtype=torch.float32)
+    seg = torch.tensor([0, 5, -1, 1, 1])
+    assert gnn.segment_sum(data.to(cuda), seg.to(cuda), 3).cpu().tolist() \
+        == [0.0, 7.0, 0.0]
+    assert gnn.segment_max(data.to(cuda), seg.to(cuda), 3).cpu().tolist() \
+        == [0.0, 4.0, float("-inf")]
+    x = torch.tensor([[1.0, 3, 3, 2, 3, float("nan"), float("inf")]])
+    torch.cuda.synchronize()
+    assert top_k(x, 5)[1][0].tolist() == [5, 6, 1, 2, 4]
+    for xs in (x, x.repeat(3, 40)):
+        assert torch.equal(top_k(xs.to(cuda), 5)[1].cpu(), top_k(xs, 5)[1])

@@ -146,13 +146,49 @@ def _params_from_jax(**kw):
     return params_from_jax(tree, _smoke_lm(), **kw).lm_head
 
 
+def _init_recsys(**kw):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import init_params
+    return init_params(get_arch("bst").smoke_config,
+                       generator=torch.Generator(), **kw).item_emb
+
+
+def _init_gat(**kw):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import init_params
+    return init_params(get_arch("gat-cora").smoke_config,
+                       generator=torch.Generator(), **kw).layers[0].w
+
+
+def _make_recsys_inputs(**kw):
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import ShapeCell, make_inputs
+    cell = ShapeCell("s", "serve", {"batch": 4})
+    return make_inputs(np.random.default_rng(0),
+                       get_arch("two-tower-retrieval").smoke_config, cell,
+                       **kw)["batch"]["hist"]
+
+
+def _model_from_jax(**kw):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import init_params
+    from repro_torch.models.convert import model_from_jax, model_to_numpy
+    cfg = get_arch("xdeepfm").smoke_config
+    tree = model_to_numpy(init_params(cfg, generator=torch.Generator(),
+                                      device="cpu"))
+    return model_from_jax(tree, cfg, **kw).cin[0]
+
+
 @pytest.mark.parametrize("make", [_init_state, _make_cooc_store, _make_table,
                                   _make_session_table,
                                   _make_region_cooc_store,
                                   _make_region_table, _make_sketch,
                                   _init_params, _init_caches, _make_inputs,
                                   _params_from_jax, _init_moe_lm, _init_moe,
-                                  _moe_from_jax, _make_moe_inputs],
+                                  _moe_from_jax, _make_moe_inputs,
+                                  _init_recsys, _init_gat,
+                                  _make_recsys_inputs, _model_from_jax],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_state_constructors_default_to_cuda_and_refuse_without_it(
         monkeypatch, make):
