@@ -10,6 +10,7 @@
     python3 chip_smoke.py --sharded-only
     python3 chip_smoke.py --moe-only
     python3 chip_smoke.py --recsys-only
+    python3 chip_smoke.py --train-only
 
 Phases, each of which must pass:
 
@@ -298,7 +299,33 @@ Phases, each of which must pass:
      two-tower's CPU holding only the table rows they touch; a GAT's nodes
      0-63 on the subgraph that determines them, skipped and said so where
      it holds over 2M edges), within 1e-5. No kernel lies on this path:
-     every launch count must stay 0.
+     every launch count must stay 0;
+ 15. training — (a) danube's and mixtral's SMOKE models (f32, TF32 off):
+     8 AdamW steps on the card against the same 8 on the CPU from the same
+     weights and token batches, each loss within rtol 1e-3; (b)
+     h2o-danube-1.8b at its published widths and depth, bf16, remat
+     "full", seeded random weights made on the card, AdamW with master
+     weights, ``SyntheticTokenStream`` batches of 2 x 4096 tokens
+     (train_4k's 256 rows cut to 2): one step's loss and gradients with
+     the kernel forward against the same step with the twin forward (loss
+     gap, global-norm gap and the worst leaf's relative RMS, each within
+     the bound derived beside ``TRAIN_BF16_REL``), then 2 warmup and 6
+     timed steps (counts set to 0 just before the timed ones, read just
+     after: 2 x 24 ``flash_attention`` launches a step, the forward and
+     its recompute), the first loss within 0.5 of ln 32,000 + 1/2 (the
+     cross entropy of N(0, 1) logits) and the last below it; printed with
+     the card's name and power limit: ms a step, tokens/s, ``6 N tokens``
+     over the time as a share of the bf16 peak, peak GiB, a profiled step
+     and the step's forward, backward and AdamW ms by CUDA events; then
+     ``flash_attention`` at the train step's layer-0 q/k/v ([2, 32, 4096,
+     80], causal) against its twin with its time, bound and SDPA's time;
+     (c) one ``train_batch`` step each of bst, xdeepfm,
+     two-tower-retrieval (tables cut to 5M + 5M rows, 32,768 rows) and
+     bert4rec (8,192 rows) at their full ``CONFIG``s and of gat-cora on Cora, f32, TF32
+     off, ids drawn over whole tables, after a card-against-CPU check of
+     the loss and every gradient leaf on 64 rows (a GAT's whole graph):
+     ms, rows/s, FLOP share of the f32 peak, peak GiB (at most 70), no
+     kernel launched.
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -320,7 +347,8 @@ builds them and runs phase 11 alone; ``--sharded-only`` builds them and
 runs phase 12 alone; ``--moe-only`` builds them and runs the MoE SMOKE
 models of phase 3 and phase 13 alone; ``--recsys-only`` builds nothing
 (no kernel lies on its path) and runs the recsys and GNN SMOKE models of
-phase 3 and phase 14 alone.
+phase 3 and phase 14 alone; ``--train-only`` builds ``flash_attention``
+alone and runs phase 15 alone.
 ``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
 DIR lies inside this checkout (a parent commit unpacked with ``git
 archive`` under ``build/``), so one call on one card profiles two trees.
@@ -330,6 +358,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2060,7 +2089,7 @@ def check_flash_attention(q, k, v, window: int, must_beat_sdpa=True,
     against its twin one batch row at a time (a row's f32 scores are
     [Hq, T, T]), then an f32 case at a quarter of T. Times: the bare launch,
     the twin row by row (summed) and SDPA with the band as its mask (with
-    ``is_causal`` where there is no window); with ``must_beat_sdpa`` the
+    ``is_causal`` where the window does not cut the causal band); with ``must_beat_sdpa`` the
     bf16 kernel must be faster than that SDPA call. The ``-Xptxas -v``
     lines printed are those of the entry functions named ``ptxas_kernel``."""
     import torch
@@ -2111,7 +2140,7 @@ def check_flash_attention(q, k, v, window: int, must_beat_sdpa=True,
     band = (kpos <= qpos) & (kpos > qpos - window)
 
     def sdpa():
-        if window <= 0:
+        if window <= 0 or window >= T:   # the band is the causal triangle
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
         return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
@@ -5065,6 +5094,421 @@ def run_recsys(dev, card: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training on the card.
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "h2o-danube-1.8b"
+# train_4k is 256 rows of 4096 tokens, a pod's batch: one card takes 2.
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_WARMUP, TRAIN_TIMED = 2, 6
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_WARMUP
+                 + TRAIN_TIMED)
+# One step at full width with the kernel forward against the same step
+# with the twin forward (bf16): the kernel rounds P to bf16 (2^-8 relative
+# RMS on each attention output) at 24 layers, and the rest of the step
+# rounds the same way on both sides; by the derivation beside
+# LM_BF16_REL_RMS ~2.3% relative RMS is expected downstream, bounded at 5%
+# for each gradient leaf and the global norm. The loss (~10.9) averages
+# 8192 tokens' errors, bounded at 0.05.
+TRAIN_BF16_REL, TRAIN_LOSS_GAP = 0.05, 0.05
+# Random weights give N(0, 1) logits (unit-RMS final norm, head std
+# 1/sqrt(d)), whose cross entropy is ln V + 1/2; the first loss must lie
+# within 0.5 of it.
+TRAIN_FIRST_LOSS_GAP = 0.5
+TRAIN_SMOKE_ARCHS = ("h2o-danube-1.8b", "mixtral-8x22b")
+TRAIN_SMOKE_STEPS = 8
+# f32, TF32 off: ~1e-6 relative a step from sums in another order, which
+# AdamW's m / sqrt(v) amplifies where a gradient is near zero.
+TRAIN_SMOKE_RTOL = 1e-3
+TRAIN_RECSYS_ARCHS = ("bst", "xdeepfm", "two-tower-retrieval", "bert4rec")
+# bert4rec's 8,192 shared negatives give [B, 30, 8192] f32 logits (8 GiB at
+# 8,192 rows, 64 GiB at train_batch's 65,536): 8,192 rows. two-tower's
+# in-batch softmax holds [B, B] f32 logits, 16 GiB a copy at 65,536 rows
+# (the step ran out of the card's memory there): halved to 32,768.
+TRAIN_RECSYS_BATCH = {"bert4rec": 8192, "two-tower-retrieval": 32768}
+# two-tower's 10M + 10M rows of 256 f32 (19.1 GiB) with their dense
+# gradients and AdamW's m and v are 76 GiB: 5M + 5M rows (38 GiB).
+TRAIN_TWO_TOWER_ROWS = 5_000_000
+TRAIN_PEAK_GIB = 70.0
+# 64 rows card against CPU, f32, TF32 off: the loss within rtol 1e-5 (the
+# serving bar), each gradient leaf within 1e-4 of its largest magnitude
+# (the CPU tests hold the port to JAX at 2e-5; the card's atomics add
+# table rows in another order).
+TRAIN_CHECK_GRAD = 1e-4
+
+
+class _AttentionThrough:
+    """Route ``ops.flash_attention`` through ``wrap(kernel_call)`` inside
+    the block (the model looks the wrapper up at each call)."""
+
+    def __init__(self, wrap):
+        self.wrap = wrap
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.kernel_call = ops.flash_attention
+        ops.flash_attention = self.wrap(self.kernel_call)
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self.kernel_call
+
+
+def _twin(_kernel_call):
+    from repro_torch.kernels import ref
+    return lambda q, k, v, causal=True, window=0: ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window)
+
+
+def train_smoke_card_vs_cpu(dev) -> None:
+    """Phase 15 (a): danube's and mixtral's SMOKE models (f32, TF32 off),
+    8 AdamW steps on the card against the same 8 on the CPU from the same
+    weights and token batches: each step's loss within rtol 1e-3."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticTokenStream
+    from repro_torch.models import api, transformer as tr
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = TrainConfig(opt=opt.AdamWConfig(lr=3e-3, warmup_steps=2,
+                                           total_steps=TRAIN_SMOKE_STEPS))
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = get_arch(arch).smoke_config
+        data = SyntheticTokenStream(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=64, batch_size=4, seed=SEED))
+        losses = []
+        for d in ("cpu", dev):
+            model = tr.init_params(
+                cfg, generator=torch.Generator().manual_seed(SEED),
+                device="cpu").to(d)
+            state = init_train_state(model, tcfg)
+            step = make_train_step(api.loss_fn(cfg), tcfg)
+            out = []
+            for s in range(TRAIN_SMOKE_STEPS):
+                model, state, m = step(model, state, {
+                    "tokens": torch.from_numpy(data.batch(s)).to(d)})
+                out.append(float(m["loss"]))
+            losses.append(out)
+        cpu, card = losses
+        gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        log(f"  {arch} SMOKE, {TRAIN_SMOKE_STEPS} train steps card vs CPU: "
+            f"losses {card!r} (CPU {cpu!r}), max rel gap {gap!r} (rtol "
+            f"{TRAIN_SMOKE_RTOL})")
+        if gap > TRAIN_SMOKE_RTOL or not card[-1] < card[0]:
+            raise AssertionError(f"{arch} SMOKE training differs on the "
+                                 f"card or does not learn")
+
+
+def _grad_gap(model, ga, gb):
+    """(global norms of ga and gb, the worst JAX leaf's relative RMS gap
+    and its path)."""
+    from repro_torch.training import optimizer as opt
+    runs, names = opt.groups(model), [n for n, _ in opt.named_leaves(model)]
+    worst = (0.0, None)
+    for run in runs:
+        num = sum(float((ga[i].float() - gb[i].float()).square().sum())
+                  for i in run)
+        den = sum(float(gb[i].float().square().sum()) for i in run)
+        rel = (num / max(den, 1e-30)) ** 0.5
+        if rel >= worst[0]:
+            worst = (rel, names[run[0]])
+    return (float(opt.global_norm(ga, runs)), float(opt.global_norm(gb, runs)),
+            worst)
+
+
+def _train_step_split(model, state, batch, loss_fn, tcfg):
+    """One more train step, timed by CUDA events in three parts: the
+    forward (the loss), the backward (the recomputed forward and the
+    gradients) and the AdamW update. Returns their ms."""
+    import torch
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import trainable
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ps = opt.leaves(model)
+    torch.cuda.synchronize()
+    with trainable(ps):
+        ev[0].record()
+        loss, _ = loss_fn(model, batch)
+        ev[1].record()
+        grads = list(torch.autograd.grad(loss, ps))
+        ev[2].record()
+    _, state["opt"], _ = opt.apply_updates(model, grads, state["opt"],
+                                           tcfg.opt)
+    ev[3].record()
+    ev[3].synchronize()
+    return {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+            enumerate(("forward", "backward", "optimizer"))}
+
+
+def _stream_batch(kw, step):
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticTokenStream
+    return SyntheticTokenStream(LMDataConfig(**kw)).batch(step)
+
+
+def stream_batches(kw, steps):
+    """``SyntheticTokenStream(LMDataConfig(**kw)).batch(s)`` for each step,
+    one spawned process a batch at a time (the stream draws a batch token
+    by token on the host, ~3 s at 2 x 4097 tokens); the pool is shut down
+    on return."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    with cf.ProcessPoolExecutor(max_workers=min(len(steps), 8),
+                                mp_context=mp.get_context("spawn")) as ex:
+        return list(ex.map(_stream_batch, [kw] * len(steps), steps))
+
+
+def train_full_width(dev, card, rows):
+    """Phase 15 (b): h2o-danube-1.8b at its published widths and depth,
+    bf16, remat "full", random weights from a seed made on the card, AdamW
+    with master weights, the token stream's batches of 2 x 4096. Returns
+    the timed steps' launch counts."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticTokenStream
+    from repro_torch.models import api, transformer as tr
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step,
+                                                 value_and_grad)
+    cfg = get_arch(TRAIN_ARCH).config
+    B, T, n_steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP + TRAIN_TIMED
+    t0 = time.perf_counter()
+    batches = [{"tokens": torch.from_numpy(b).to(dev)} for b in stream_batches(
+        dict(vocab_size=cfg.vocab_size, seq_len=T, batch_size=B, seed=SEED),
+        list(range(n_steps)))]
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = tr.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)
+    torch.cuda.synchronize()
+    log(f"[15] training at full width ({card}): {cfg}, {cfg.param_count()} "
+        f"parameters made on the card in {time.perf_counter() - t0:.2f} s; "
+        f"batch {B} x {T} tokens (train_4k's 256 rows cut to {B}); AdamW "
+        f"{TRAIN_OPT}, master weights; {n_steps} token batches drawn in "
+        f"{draw_s:.1f} s on the host, in parallel processes")
+    loss_fn = api.loss_fn(cfg)
+
+    # (b1) one step's loss and gradients, kernel forward against twin
+    (lk, _), gk = value_and_grad(loss_fn, model, batches[0])
+    with _AttentionThrough(_twin):
+        (lt, _), gt = value_and_grad(loss_fn, model, batches[0])
+    nk, nt, (worst, where) = _grad_gap(model, gk, gt)
+    dloss, dnorm = abs(float(lk) - float(lt)), abs(nk - nt) / nt
+    log(f"  one step, kernel forward vs twin forward: loss {float(lk)!r} vs "
+        f"{float(lt)!r} (gap {dloss!r}, bound {TRAIN_LOSS_GAP}); grad norm "
+        f"{nk!r} vs {nt!r} (rel gap {dnorm!r}, bound {TRAIN_BF16_REL}); "
+        f"worst leaf rel RMS {worst!r} at {where} (bound {TRAIN_BF16_REL})")
+    if dloss > TRAIN_LOSS_GAP or dnorm > TRAIN_BF16_REL or \
+            worst > TRAIN_BF16_REL or not math.isfinite(float(lk)):
+        raise AssertionError("the kernel forward's gradients disagree with "
+                             "the twin's")
+    del gk, gt
+    torch.cuda.empty_cache()
+
+    # (b2) the steps: warmup, then the timed ones with the counts at 0
+    tcfg = TrainConfig(opt=opt.AdamWConfig(**TRAIN_OPT))
+    state = init_train_state(model, tcfg)
+    step = make_train_step(loss_fn, tcfg)
+    losses, ms = [], []
+    for s in range(n_steps):
+        if s == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tk.reset_launches()
+        (model, state, m), t = _synced_ms(
+            lambda: step(model, state, batches[s]))
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = TRAIN_TIMED * cfg.n_layers * (2 if cfg.remat == "full" else 1)
+    missing = [n for n in tk.PATH_KERNELS["train"] if launches[n] <= 0]
+    if missing or launches["flash_attention"] != want:
+        raise AssertionError(f"train steps launched {launches}, want "
+                             f"flash_attention {want}")
+    first_exp = math.log(cfg.vocab_size) + 0.5
+    if not all(map(math.isfinite, losses)) or \
+            abs(losses[0] - first_exp) > TRAIN_FIRST_LOSS_GAP or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}")
+    timed = ms[TRAIN_WARMUP:]
+    step_ms = statistics.median(timed)
+    flops = api.model_flops(cfg, api.ShapeCell("t", "train", {"batch": B,
+                                                              "seq": T}))
+    rec = {"step_ms": step_ms, "steps_ms": timed, "warmup_ms":
+           ms[:TRAIN_WARMUP], "tokens_per_s": B * T / step_ms * 1e3,
+           "model_flops": flops, "bf16_peak_share": flops / (step_ms * 1e-3)
+           / BF16_TC_OPS_PER_S, "peak_gib": peak, "losses": losses,
+           "first_loss_expected": first_exp,
+           "flash_attention_launches": launches["flash_attention"]}
+    log(f"[15] danube train steps ({card}): {json.dumps(rec)}")
+    _profiled("train step", lambda: step(model, state, batches[-1]))
+    split = _train_step_split(model, state, batches[-1], loss_fn, tcfg)
+    total = sum(split.values())
+    log(f"  train step by CUDA events: {json.dumps(split)} ms; backward "
+        f"{100 * split['backward'] / total!r}% of {total!r} ms")
+
+    # flash_attention at the train step's layer-0 q/k/v
+    captured = []
+
+    def capture(kernel_call):
+        def fn(q, k, v, causal=True, window=0):
+            if not captured:
+                captured.append((q, k, v))
+            return kernel_call(q, k, v, causal, window)
+        return fn
+    with torch.no_grad(), _AttentionThrough(capture):
+        tr.forward(model, batches[0]["tokens"][:, :-1], cfg)
+    del model, state, batches
+    torch.cuda.empty_cache()
+    log("[2] flash_attention at the train step's layer-0 shapes")
+    row = check_flash_attention(*captured[0], cfg.window,
+                                must_beat_sdpa=False)
+    rows.setdefault("flash_attention", {})["train_shape"] = row
+    log(f"  flash_attention at the train step's shape: {json.dumps(row)}")
+    return launches
+
+
+def _rows_check(cfg, cell, model, batch):
+    """Loss and gradients of the first 64 rows (a GAT: its whole graph) on
+    the card against the port's CPU path: (loss error, worst leaf's error
+    over its largest magnitude). two-tower's CPU model holds only the
+    table rows those ids touch (ids renumbered, 0 kept as padding)."""
+    import torch
+    from repro_torch.models import api, gnn, recsys
+    from repro_torch.models.convert import model_from_jax, model_to_numpy
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import value_and_grad
+    if isinstance(cfg, gnn.GATConfig):
+        rows = batch
+    else:
+        rows = {k: v if k == "neg_ids" else v[:CHECK_ROWS]
+                for k, v in batch.items()}
+    (loss, _), grads = value_and_grad(api.loss_fn(cfg), model, rows)
+    card = dict(zip([n for n, _ in opt.named_leaves(model)], grads))
+    if isinstance(cfg, recsys.TwoTowerConfig):
+        users, u_at = torch.unique(rows["user_id"], return_inverse=True)
+        items, i_at = torch.unique(torch.cat(
+            [torch.zeros(1, dtype=torch.int32, device=users.device),
+             rows["hist"].reshape(-1), rows["pos_item"]]),
+            return_inverse=True)
+        nh = rows["hist"].numel()
+        host = {"user_id": u_at.int(),
+                "hist": i_at[1:1 + nh].reshape(rows["hist"].shape).int(),
+                "pos_item": i_at[1 + nh:].int(),
+                "item_logq": rows["item_logq"]}
+        cpu_cfg = dataclasses.replace(cfg, n_users=len(users),
+                                      n_items=len(items))
+        cpu = api.init_params(cpu_cfg, generator=None, device="cpu")
+        state = {k: v.cpu() for k, v in model.state_dict().items()
+                 if "emb" not in k}
+        state["user_emb"] = model.user_emb.detach()[users].cpu()
+        state["item_emb"] = model.item_emb.detach()[items].cpu()
+        cpu.load_state_dict(state)
+        card["user_emb"] = card["user_emb"][users]
+        card["item_emb"] = card["item_emb"][items]
+    else:
+        cpu_cfg, host = cfg, rows
+        cpu = model_from_jax(model_to_numpy(model), cfg, device="cpu")
+    host = {k: v.cpu() for k, v in host.items()}
+    (closs, _), cgrads = value_and_grad(api.loss_fn(cpu_cfg), cpu, host)
+    loss_err = abs(float(loss) - float(closs)) / abs(float(closs))
+    worst = 0.0
+    for (name, _), cg in zip(opt.named_leaves(cpu), cgrads):
+        scale = max(float(cg.abs().max()), 1e-30)
+        worst = max(worst, float((card[name].cpu() - cg).abs().max())
+                    / scale)
+    if loss_err > 1e-5 or worst > TRAIN_CHECK_GRAD:
+        raise AssertionError(f"{cfg.name}: card vs CPU loss {loss_err!r}, "
+                             f"gradients {worst!r}")
+    return loss_err, worst, host["x"].shape[0] if "x" in host else \
+        CHECK_ROWS
+
+
+def train_recsys(dev, card) -> None:
+    """Phase 15 (c): one ``train_batch`` step (AdamW, no master copy of the
+    f32 weights) of bst, xdeepfm, two-tower-retrieval and bert4rec at their
+    full ``CONFIG``s, and of gat-cora on Cora (full_graph_sm), f32 with
+    TF32 off, on ids drawn over each whole table; first the 64-row card
+    against CPU check of the loss and every gradient leaf."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.configs import gat_cora, get_arch
+    from repro_torch.models import api
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = TrainConfig(opt=opt.AdamWConfig(master_weights=False))
+    for arch in TRAIN_RECSYS_ARCHS + ("gat-cora",):
+        spec, cut = get_arch(arch), []
+        if arch == "gat-cora":
+            cell = spec.cell("full_graph_sm")
+            cfg = gat_cora.adapt_config(spec.config, cell)
+        else:
+            cell, cfg = spec.cell("train_batch"), spec.config
+            if arch in TRAIN_RECSYS_BATCH:
+                cut.append(f"batch {cell.dims['batch']} -> "
+                           f"{TRAIN_RECSYS_BATCH[arch]}")
+                cell = dataclasses.replace(cell, dims=dict(
+                    cell.dims, batch=TRAIN_RECSYS_BATCH[arch]))
+            if arch == "two-tower-retrieval":
+                cut.append(f"tables {cfg.n_users} + {cfg.n_items} rows -> "
+                           f"{TRAIN_TWO_TOWER_ROWS} + {TRAIN_TWO_TOWER_ROWS}")
+                cfg = dataclasses.replace(cfg, n_users=TRAIN_TWO_TOWER_ROWS,
+                                          n_items=TRAIN_TWO_TOWER_ROWS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = api.init_params(
+            cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+            device=dev)
+        batch = seeded_batch(cfg, cell, dev,
+                             torch.Generator(device=dev).manual_seed(SEED))
+        loss_err, grad_err, n_rows = _rows_check(cfg, cell, model, batch)
+        state = init_train_state(model, tcfg)
+        step = make_train_step(api.loss_fn(cfg), tcfg)
+        tk.reset_launches()
+        (model, state, m), ms = _synced_ms(lambda: step(model, state,
+                                                        batch))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(tk.LAUNCHES)
+        rows = cell.dims.get("batch", cell.dims.get("n_nodes"))
+        flops = api.model_flops(cfg, cell)
+        rec = {"ms": ms, "rows": rows, "rows_per_s": rows / ms * 1e3,
+               "model_flops": flops, "f32_peak_share": flops / (ms * 1e-3)
+               / F32_OPS_PER_S, "peak_gib": peak, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "cuts": cut,
+               "check_rows": n_rows, "check_loss_rel_err": loss_err,
+               "check_grad_err_over_leaf_max": grad_err}
+        log(f"[15] {arch} {cell.name} train step ({card}): {json.dumps(rec)}")
+        if any(launches.values()) or peak > TRAIN_PEAK_GIB or \
+                not math.isfinite(rec["loss"]):
+            raise AssertionError(f"{arch} train step: launches {launches}, "
+                                 f"peak {peak} GiB, loss {rec['loss']}")
+        del model, state, batch
+    torch.cuda.empty_cache()
+
+
+def run_train(dev, card: str, rows):
+    """Phase 15: training. Returns the full-width danube steps' launch
+    counts."""
+    t_phase = time.perf_counter()
+    log(f"[15] training: SMOKE models, card vs CPU ({card})")
+    train_smoke_card_vs_cpu(dev)
+    launches = train_full_width(dev, card, rows)
+    train_recsys(dev, card)
+    log(f"  training phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-region-only", action="store_true",
@@ -5094,6 +5538,9 @@ def main() -> int:
                     help="run the recsys and GNN SMOKE models card vs CPU "
                          "and phase 14 (the recsys and GNN serving paths), "
                          "and nothing else")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build flash_attention and run phase 15 "
+                         "(training), and nothing else")
     ap.add_argument("--root", default=str(ROOT),
                     help="with --profile-region-only or --profile-hash-only:"
                          " a directory inside this checkout whose "
@@ -5134,6 +5581,16 @@ def main() -> int:
         log("[3] recsys and GNN SMOKE models on the card vs the CPU")
         small_recsys(dev)
         run_recsys(dev, card)
+        log(f"  total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.train_only:     # one kernel lies on this path: build it alone
+        log(f"[1] card: {card} | torch {torch.__version__} cuda "
+            f"{torch.version.cuda}")
+        t0 = time.perf_counter()
+        build.build_all(("flash_attention",))
+        build.load("flash_attention")
+        log(f"  built flash_attention in {time.perf_counter() - t0:.1f} s")
+        run_train(dev, card, {})
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
     if (args.flash_crowd_only or args.tune_only or args.fleet_only
@@ -5323,6 +5780,10 @@ def main() -> int:
 
     # ---- 14. the recsys and GNN serving paths ----
     launches["recsys"] = run_recsys(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 15. training ----
+    launches["train"] = run_train(dev, card, rows)
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

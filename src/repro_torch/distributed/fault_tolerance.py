@@ -14,10 +14,13 @@ deliberate:
     host memory the manager owns, so the delta shadow never aliases a
     tensor the caller goes on mutating in place (the port's stores do).
     A tensor viewed as ``torch.uint32`` is stored as ``uint32``;
-  * npz cannot hold bfloat16 and the port imports no ``ml_dtypes``, so a
-    bfloat16 leaf (or any other dtype npz cannot store) is refused with a
-    ``ValueError``, and so is restoring a snapshot whose manifest records
-    ``raw_dtypes``. No engine leaf is one;
+  * npz cannot hold bfloat16, so a bfloat16 leaf (a tensor, or a numpy
+    array of ``ml_dtypes``' bfloat16) is stored as its bits, a ``uint16``
+    view, with ``raw_dtypes["leaf_<i>"] = "bfloat16"`` in the manifest, as
+    the JAX package stores one, and restored as bfloat16 by that name with
+    ``torch`` views alone (no ``ml_dtypes``). Any other dtype npz cannot
+    store (float8, torch's ``uint16``/``uint64``) is refused with a
+    ``ValueError``, and so is a manifest naming another raw dtype;
   * every save is zlib-compressed (``SNAPSHOT_CODEC``) and stale ``.tmp_*``
     dirs expire after ``TMP_TTL_S``; restore decodes any codec, so the JAX
     package's ``codec="raw"`` snapshots restore too;
@@ -48,7 +51,7 @@ slots; see ``core.stores.diff_leading_rows``). One manifest per step dir:
       "base_step": int | null,   # delta only: the previous snapshot in the
                                  # chain (full or delta) it was diffed against
       "n_leaves":  int,          # leaf count (layout-mismatch guard)
-      "raw_dtypes": {},          # always empty here (see above)
+      "raw_dtypes": {...},       # bfloat16 leaves, stored as uint16 bits
       "sha256":    hex,          # over the arrays.npz bytes (torn/corrupt
                                  # detection during the chain walk)
       "nbytes":    int,          # arrays.npz size (delta-vs-full accounting)
@@ -131,27 +134,51 @@ def _unflatten(tree: Leaves, leaves: List[Any]) -> Leaves:
     return type(tree)(leaves)
 
 
-def _to_host(x) -> np.ndarray:
-    """A host copy of ``x`` that nothing else references. A
+BF16 = "bfloat16"    # the one raw-viewed dtype: stored as its uint16 bits
+
+
+def _to_host(x) -> Tuple[np.ndarray, Optional[str]]:
+    """A host copy of ``x`` that nothing else references, and the raw
+    dtype it views (``"bfloat16"``, stored as ``uint16`` bits) or None. A
     ``torch.uint32`` tensor comes back as ``uint32`` (copied through its
     int32 view, which every torch build's copy kernels take)."""
     if not isinstance(x, torch.Tensor):
         a = np.array(x, copy=True)
+        if a.dtype.name == BF16:
+            return a.view(np.uint16), BF16
         if a.dtype.kind == "V":
             raise ValueError(f"cannot snapshot numpy dtype {a.dtype}")
-        return a
+        return a, None
     t = x.detach()
     if t.dtype == torch.uint32:
         return t.view(torch.int32).to("cpu", copy=True).numpy().view(
-            np.uint32)
-    if t.dtype in (torch.bfloat16, torch.uint16, torch.uint64):
+            np.uint32), None
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).to("cpu", copy=True).numpy().view(
+            np.uint16), BF16
+    if t.dtype in (torch.uint16, torch.uint64) or t.dtype.is_floating_point \
+            and t.element_size() == 1:
         raise ValueError(f"cannot snapshot a {t.dtype} leaf: npz cannot "
-                         f"store it and no engine leaf is one")
-    return t.to("cpu", copy=True).numpy()
+                         f"store it")
+    return t.to("cpu", copy=True).numpy(), None
 
 
-def _to_leaf(a: np.ndarray, leaf):
-    """A restored array in the dtype and on the device of template ``leaf``."""
+def _from_raw(a: np.ndarray, raw: Optional[str]):
+    """A stored array as the dtype it was saved from: a bfloat16 leaf's
+    uint16 bits as a bfloat16 tensor."""
+    if raw is None:
+        return a
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+        torch.bfloat16)
+
+
+def _to_leaf(a, leaf):
+    """A restored array (or bfloat16 tensor) in the dtype and on the device
+    of template ``leaf``."""
+    if isinstance(a, torch.Tensor):
+        if not isinstance(leaf, torch.Tensor):
+            return a.float().numpy().astype(leaf.dtype)
+        return a.to(device=leaf.device, dtype=leaf.dtype)
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(a, dtype=leaf.dtype)
     if leaf.dtype == torch.uint32:
@@ -238,7 +265,9 @@ class CheckpointManager:
         """
         times: Dict[str, float] = {}
         t0 = time.perf_counter()
-        np_leaves = [_to_host(x) for x in _flatten(tree)]
+        hosted = [_to_host(x) for x in _flatten(tree)]
+        np_leaves = [a for a, _ in hosted]
+        raw = {f"leaf_{i}": r for i, (_, r) in enumerate(hosted) if r}
         times["to_host"] = time.perf_counter() - t0
         kind, base_step = "full", None
         if (self.full_interval > 1 and self._shadow is not None
@@ -276,7 +305,7 @@ class CheckpointManager:
                 "kind": kind,
                 "base_step": base_step,
                 "n_leaves": len(np_leaves),
-                "raw_dtypes": {},
+                "raw_dtypes": raw,
                 "sha256": digest,
                 "nbytes": len(blob),
                 "codec": cinfo["codec"],
@@ -432,11 +461,12 @@ class CheckpointManager:
         """
         times: Dict[str, float] = {}
         arrays, manifest, step = self.load_arrays(step, times)
-        if manifest.get("raw_dtypes"):
+        raw = manifest.get("raw_dtypes") or {}
+        other = {k: v for k, v in raw.items() if v != BF16}
+        if other:
             raise ValueError(
-                f"checkpoint step {step} holds raw-viewed leaves "
-                f"{sorted(manifest['raw_dtypes'])}, which the port cannot "
-                f"restore (no engine leaf is one)")
+                f"checkpoint step {step} holds raw-viewed leaves {other}, "
+                f"which the port cannot restore (only {BF16})")
         leaves = _flatten(template)
         n_saved = manifest.get("n_leaves", len(leaves))
         if n_saved != len(leaves):
@@ -445,8 +475,8 @@ class CheckpointManager:
                 f"restore template has {len(leaves)} — engine config / "
                 f"store layout mismatch (e.g. hash vs region cooc)?")
         t0 = time.perf_counter()
-        new = [_to_leaf(arrays[f"leaf_{i}"], leaf)
-               for i, leaf in enumerate(leaves)]
+        new = [_to_leaf(_from_raw(arrays[f"leaf_{i}"], raw.get(f"leaf_{i}")),
+                        leaf) for i, leaf in enumerate(leaves)]
         _sync(new)
         times["to_device"] = time.perf_counter() - t0
         self.last_restore_ms = {k: v * 1e3 for k, v in times.items()}

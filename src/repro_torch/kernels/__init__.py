@@ -40,9 +40,13 @@ qstore sweep), ``chain_find``, ``region_rank`` and ``bucket_topk``
 (:data:`PATH_KERNELS`). The spelling job runs ``edit_distance``; the LM's
 cache-free forward, dense or MoE, runs ``flash_attention`` once per layer
 (its prefill and decode go through the KV cache in plain torch, as in JAX;
-the MoE layer is plain torch, as it is ``jnp`` in JAX). The recsys and
-GNN serving paths launch none: no Pallas kernel lies on them in JAX either
-(``jnp.take``, einsums, segment ops and ``lax.top_k``).
+the MoE layer is plain torch, as it is ``jnp`` in JAX). An LM's train
+step runs ``flash_attention``'s forward once per layer, and once more per
+layer under remat ``"full"`` (the recomputed forward); its backward is the
+plain twin under autograd, as JAX's ``custom_vjp`` backward is its jnp
+oracle. The recsys and GNN serving and training paths launch none: no
+Pallas kernel lies on them in JAX either (``jnp.take``, einsums, segment
+ops and ``lax.top_k``).
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk", "chain_find",
            "region_rank", "assoc_score", "edit_distance", "flash_attention")
 
 # The kernels each cooc layout's main path, the spelling job, the dense
-# and MoE LMs' scoring forwards and the recsys and GNN serving paths launch.
+# and MoE LMs' scoring forwards, the recsys and GNN serving paths and an
+# LM's train step launch.
 PATH_KERNELS = {
     "hash": ("decay_prune_multi", "score_gate", "bucket_topk"),
     "region": ("decay_prune_multi", "chain_find", "region_rank",
@@ -64,6 +69,7 @@ PATH_KERNELS = {
     "moe": ("flash_attention",),
     "recsys": (),
     "gnn": (),
+    "train": ("flash_attention",),
 }
 
 # Launch counts per kernel: incremented only where a wrapper launches its

@@ -53,11 +53,15 @@ def library_path(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every source whose library is missing, in parallel; return
-    ``{stem: library path}``. Raises on any failed build."""
-    out = {src.stem: library_path(src) for src in sources()}
-    todo = [(src, out[src.stem]) for src in sources()
+def build_all(stems=None) -> Dict[str, Path]:
+    """Compile every source (or those of ``stems``) whose library is
+    missing, in parallel; return ``{stem: library path}``. Raises on any
+    failed build."""
+    srcs = [src for src in sources() if stems is None or src.stem in stems]
+    if stems is not None and len(srcs) != len(set(stems)):
+        raise KeyError(f"no kernel source for some of {sorted(stems)}")
+    out = {src.stem: library_path(src) for src in srcs}
+    todo = [(src, out[src.stem]) for src in srcs
             if not out[src.stem].exists()]
     if not todo:
         return out
@@ -83,14 +87,15 @@ def build_all() -> Dict[str, Path]:
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<stem>.cu`` (builds on demand)."""
+    """The loaded library built from ``csrc/<stem>.cu``. A library not built
+    yet is built on demand, with every other missing one in parallel."""
     if stem not in _LOADED:
-        paths = build_all()
-        if stem not in paths:
+        if not (CSRC / f"{stem}.cu").exists():
             raise KeyError(f"no kernel source csrc/{stem}.cu")
-        for name, path in paths.items():
-            if name not in _LOADED:
-                _LOADED[name] = ctypes.CDLL(str(path))
+        path = library_path(CSRC / f"{stem}.cu")
+        if not path.exists():
+            build_all()
+        _LOADED[stem] = ctypes.CDLL(str(path))
     return _LOADED[stem]
 
 

@@ -1,21 +1,23 @@
-"""Architecture API, serving half: port of the JAX package's
-``models/api.py`` for the three families (lm, gnn, recsys).
+"""Architecture API: port of the JAX package's ``models/api.py`` for the
+three families (lm, gnn, recsys).
 
   * ``ShapeCell`` / ``ArchSpec``      — one (architecture x input shape) cell
   * ``init_params(spec_or_cfg, ...)`` — real parameters from a generator
+  * ``abstract_params(cfg)``          — the JAX tree's shapes and dtypes
+  * ``loss_fn(cfg)``                  — ``fn(params, batch) -> (loss, metrics)``
   * ``serve_fn(cfg, cell)``            — the step for a prefill, decode,
                                          serve or retrieval cell
   * ``input_specs(cfg, cell)``         — the input tree as ``TensorSpec``s
   * ``make_inputs(rng, cfg, cell)``    — random inputs for a cell
   * ``id_ranges(cfg, cell)``           — the bound of each id input
+  * ``sharding_rules`` / ``serve_rules`` / ``batch_axis_for`` — JAX's
+                                         sharding tables, as data
   * ``model_bytes`` / ``model_flops``  — the analytic roofline terms
   * ``adapt_lm_config(cfg, cell, dp)`` — MoE dispatch groups for a cell
 
 A GAT has no serving step (``serve_fn`` raises ``TypeError``, as JAX's
-does); its forward is ``gnn.forward``. The training half (``loss_fn``, the
-sharding rules, ``abstract_params``, ``batch_axis_for``, LM train cells) is
-not ported yet (ROADMAP Queue 1 item 14.4) and raises
-``NotImplementedError``.
+does); its forward is ``gnn.forward``. One card has no mesh, so the
+sharding tables are data for a caller that places parameters itself.
 """
 from __future__ import annotations
 
@@ -26,9 +28,8 @@ import numpy as np
 import torch
 
 from ..core.stores import resolve_device
+from ..training.optimizer import named_leaves
 from . import gnn, recsys, transformer as tr
-
-PENDING = "not ported yet (ROADMAP Queue 1 item 14.4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,28 +86,114 @@ def init_params(spec_or_cfg, *, generator: torch.Generator, device="cuda"):
     raise TypeError(type(cfg))
 
 
-def _pending(*_args, **_kw):
-    raise NotImplementedError(f"the training half of the API is {PENDING}")
+def abstract_params(cfg) -> Dict[str, Any]:
+    """The JAX parameter tree's shapes and dtypes (``jax.eval_shape`` of its
+    ``init_params``) as ``TensorSpec``s, from the module made on the
+    ``meta`` device: dicts by name, lists where JAX has lists, an LM's
+    blocks stacked on a leading layer dim."""
+    module = init_params(cfg, generator=None, device="meta")
+    stacked = getattr(module, "STACKED", None)
+    runs: Dict[str, list] = {}
+    for path, t in named_leaves(module):
+        runs.setdefault(path, []).append(t)
+    tree: Dict[str, Any] = {}
+    for path, ts in runs.items():
+        shape = tuple(ts[0].shape)
+        if path.split(".")[0] == stacked:
+            shape = (len(ts),) + shape
+        *keys, leaf = path.split(".")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = TensorSpec(shape, ts[0].dtype)
+
+    def lists(node):
+        if isinstance(node, TensorSpec):
+            return node
+        if all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
 
 
-abstract_params = sharding_rules = serve_rules = batch_axis_for = \
-    loss_fn = _pending
+def sharding_rules(cfg):
+    """(path regex, logical axes per dim) for training."""
+    if isinstance(cfg, tr.LMConfig):
+        return tr.params_sharding_rules()
+    if isinstance(cfg, gnn.GATConfig):
+        return []  # tiny params: fully replicated
+    # recsys: embedding tables row-sharded over tp
+    return [
+        (r"(item_emb|user_emb|profile_emb|emb|linear_w)$", ("tp",)),
+        (r"mlp/w0$", (None, "tp")),
+        (r"mlp/w1$", ("tp", None)),
+    ]
+
+
+def _param_bytes(cfg) -> int:
+    def leaves(node):
+        if isinstance(node, TensorSpec):
+            yield node
+        else:
+            for v in (node.values() if isinstance(node, dict) else node):
+                yield from leaves(v)
+    return int(sum(np.prod(s.shape) * s.dtype.itemsize
+                   for s in leaves(abstract_params(cfg))))
+
+
+def serve_rules(cfg):
+    """Param sharding for SERVING: dense LMs keep the 1D training rules,
+    MoE LMs shard 2D, small recsys models (< 2 GiB of parameters)
+    replicate, and the rest keep the training rules."""
+    if isinstance(cfg, tr.LMConfig):
+        return tr.serve_sharding_rules() if cfg.moe \
+            else tr.params_sharding_rules()
+    if isinstance(cfg, gnn.GATConfig):
+        return []
+    if _param_bytes(cfg) < 2 << 30:
+        return []   # fully replicated serving copy
+    return sharding_rules(cfg)
+
+
+def batch_axis_for(cfg, cell: ShapeCell) -> str:
+    """The mesh axis a cell's batch shards over: the whole mesh ('all') for
+    the small recsys models, which replicate at serve; 'dp' otherwise
+    (two-tower's row-sharded item table keeps 'dp')."""
+    if isinstance(cfg, (recsys.BSTConfig, recsys.XDeepFMConfig,
+                        recsys.Bert4RecConfig)):
+        return "all"
+    return "dp"
 
 
 # ---------------------------------------------------------------------------
-# serving steps
+# loss / serving steps
 # ---------------------------------------------------------------------------
 
-def _no_lm_train(cfg, cell: ShapeCell) -> None:
-    if isinstance(cfg, tr.LMConfig) and cell.kind == "train":
-        raise NotImplementedError(f"LM train cells are {PENDING}")
+def loss_fn(cfg) -> Callable:
+    """``fn(params, batch) -> (loss, metrics)`` of a train cell's batch."""
+    if isinstance(cfg, tr.LMConfig):
+        return lambda p, b: tr.loss_fn(p, b, cfg)
+    if isinstance(cfg, gnn.GATConfig):
+        return lambda p, b: gnn.loss_fn(p, b, cfg)
+    if isinstance(cfg, recsys.BSTConfig):
+        return lambda p, b: recsys.bce_loss(recsys.bst_forward(p, b, cfg),
+                                            b["labels"])
+    if isinstance(cfg, recsys.XDeepFMConfig):
+        return lambda p, b: recsys.bce_loss(recsys.xdeepfm_forward(p, b, cfg),
+                                            b["labels"])
+    if isinstance(cfg, recsys.Bert4RecConfig):
+        if cfg.n_items > 100_000:   # production vocab -> sampled softmax
+            return lambda p, b: recsys.bert4rec_sampled_loss(p, b, cfg)
+        return lambda p, b: recsys.bert4rec_loss(p, b, cfg)
+    if isinstance(cfg, recsys.TwoTowerConfig):
+        return lambda p, b: recsys.twotower_loss(p, b, cfg)
+    raise TypeError(type(cfg))
 
 
 def serve_fn(cfg, cell: ShapeCell) -> Callable:
     """Forward-only step for serve/prefill/decode/retrieval cells: an LM's
     ``fn(params, caches, tokens) -> (logits, caches)``, a recsys model's
     ``fn(params, batch)``."""
-    _no_lm_train(cfg, cell)
     if isinstance(cfg, tr.LMConfig):
         if cell.kind == "prefill":
             return lambda p, caches, tokens: tr.prefill(p, tokens, cfg, caches)
@@ -173,9 +260,10 @@ def input_specs(cfg, cell: ShapeCell) -> Dict[str, Any]:
     """The input tree of a cell, each leaf a ``TensorSpec`` (no
     allocation)."""
     S, i32, d = TensorSpec, torch.int32, cell.dims
-    _no_lm_train(cfg, cell)
 
     if isinstance(cfg, tr.LMConfig):
+        if cell.kind == "train":
+            return {"batch": {"tokens": S((d["batch"], d["seq"] + 1), i32)}}
         caches = tr.init_caches(cfg, d["batch"], d.get("cache_len", d["seq"]),
                                 device="meta")
         caches = {k: S(tuple(t.shape), t.dtype) for k, t in caches.items()}
@@ -292,17 +380,21 @@ def make_inputs(rng: np.random.Generator, cfg, cell: ShapeCell,
                 device="cuda") -> Dict:
     """Random inputs of a cell on ``device``.
 
-    GNN and recsys cells (train cells' labels too): ``{"batch": {...}}``,
-    array for array JAX's ``make_inputs`` from the same generator state.
-    LM prefill ([B, seq] tokens) and decode ([B, 1]) cells: ``{"caches",
+    GNN and recsys cells (train cells' labels too) and LM train cells
+    ([B, seq + 1] tokens): ``{"batch": {...}}``, array for array JAX's
+    ``make_inputs`` from the same generator state. LM prefill ([B, seq] tokens) and decode ([B, 1]) cells: ``{"caches",
     "tokens"}``, token ids drawn as JAX draws them (integers below 100, mod
     the vocabulary) with fresh caches of ``cache_len`` (default ``seq``);
     the JAX function also draws values for the caches it then discards,
     so these ids are not draw-for-draw its."""
-    _no_lm_train(cfg, cell)
     device = resolve_device(device)
     if isinstance(cfg, tr.LMConfig):
         d = cell.dims
+        if cell.kind == "train":
+            tokens = rng.integers(0, 100, (d["batch"], d["seq"] + 1)) \
+                % cfg.vocab_size
+            return {"batch": {"tokens": torch.from_numpy(
+                tokens.astype(np.int32)).to(device)}}
         shape = (d["batch"], d["seq"] if cell.kind == "prefill" else 1)
         tokens = rng.integers(0, 100, shape) % cfg.vocab_size
         return {"caches": tr.init_caches(cfg, d["batch"],

@@ -12,16 +12,24 @@ The GAT and recsys trees nest dicts and lists (``blocks``, ``cin``,
 ``layers``); :func:`model_from_jax` loads one into the config's module
 (``blocks.0.wq``, ``cin.0``, ``layers.1.w``, ...) and
 :func:`model_to_numpy` gives the tree back.
+
+A trainer's ``(params, train_state)`` goes both ways too:
+:func:`train_leaves` lists it as ``jax.tree.leaves((params, state))``
+lists the JAX trainer's (an LM's block leaves stacked, the optimizer state
+after the parameters in JAX's key order), and :func:`load_train_leaves`
+writes such a list, from either trainer, into the port's module and state.
+A checkpoint of that list written by either trainer restores in the other.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core.stores import resolve_device
+from ..training import optimizer as optim
 from . import api
 from .moe import MoE, MoEConfig
 from .transformer import LM, LMConfig
@@ -126,3 +134,68 @@ def model_to_numpy(module: nn.Module):
             return [lists(node[str(i)]) for i in range(len(node))]
         return {k: lists(v) for k, v in node.items()}
     return lists(tree)
+
+
+def _runs(params):
+    """Each JAX leaf as (indices into ``optimizer.leaves``, stacked?)."""
+    stacked = getattr(params, "STACKED", None)
+    named = optim.named_leaves(params)
+    return [(run, named[run[0]][0].split(".")[0] == stacked)
+            for run in optim.groups(params)]
+
+
+def _state_lists(state) -> List:
+    """The state's leaf lists and tensors in JAX's key order ("ef", then
+    "opt": "m", "master", "step", "v")."""
+    out = []
+    for key in sorted(state):
+        node = state[key]
+        if isinstance(node, dict):
+            out += [node[k] for k in sorted(node)]
+        else:
+            out.append(node)
+    return out
+
+
+def jax_leaves(params, tensors) -> List[torch.Tensor]:
+    """``tensors`` (one a leaf of ``optimizer.leaves(params)``: the
+    parameters, their gradients or a moment) as the JAX tree's leaves, an
+    LM's block leaves stacked (new tensors; the others detached views)."""
+    return [torch.stack([tensors[i].detach() for i in run]) if st
+            else tensors[run[0]].detach() for run, st in _runs(params)]
+
+
+def train_leaves(params, state) -> List[torch.Tensor]:
+    """``(params, train_state)`` in ``jax.tree.leaves`` order of the JAX
+    trainer's (see :func:`jax_leaves`)."""
+    out = jax_leaves(params, optim.leaves(params))
+    for node in _state_lists(state):
+        out += jax_leaves(params, node) if isinstance(node, list) \
+            else [node]
+    return out
+
+
+@torch.no_grad()
+def load_train_leaves(params, state, leaves) -> None:
+    """Write ``leaves`` (:func:`train_leaves` order: torch tensors, or
+    numpy arrays as the JAX trainer's hold them, bf16 included) into
+    ``params`` and ``state`` in place, each cast to its tensor's dtype."""
+    runs = _runs(params)
+    targets = [optim.leaves(params)] + _state_lists(state)
+    n_want = sum(len(runs) if isinstance(t, list) else 1 for t in targets)
+    if len(leaves) != n_want:
+        raise ValueError(f"{len(leaves)} leaves for a train state of "
+                         f"{n_want}")
+    it = iter(leaves)
+
+    def put(dst, a):
+        dst.copy_(a if isinstance(a, torch.Tensor)
+                  else _tensor(a, dst.dtype, dst.device))
+    for node in targets:
+        if not isinstance(node, list):
+            put(node, next(it))
+            continue
+        for run, st in runs:
+            a = next(it)
+            for j, i in enumerate(run):
+                put(node[i], a[j] if st else a)

@@ -11,8 +11,13 @@ JAX ``constrain`` calls are no-ops without a mesh and are left out.
 
 Includes the host-side fanout neighbour sampler of the ``minibatch_lg``
 shape, a numpy copy of JAX's that gives the same arrays from the same
-``np.random.Generator``. Not ported yet (ROADMAP Queue 1 item 14.4):
-``loss_fn``, which belongs to the training slice.
+``np.random.Generator``, and the training loss (:func:`loss_fn`).
+
+Gradients: the segment max shifts the softmax, whose value does not depend
+on the shift, so its gradient sums to zero over a segment. Where two edges
+tie for a segment's max, ``scatter_reduce("amax")`` shares that zero sum
+between them as JAX's scatter-max does not; each edge's gradient then
+differs from JAX's by rounding only.
 """
 from __future__ import annotations
 
@@ -155,6 +160,20 @@ def forward(params: GAT, batch: Dict, cfg: GATConfig):
         x = gat_layer(p, x, src, dst, n, heads, d_out, ev,
                       cfg.negative_slope, last)
     return x
+
+
+def loss_fn(params: GAT, batch: Dict, cfg: GATConfig):
+    """Masked node-classification cross entropy: (loss, {"nll": loss})."""
+    logits = forward(params, batch, cfg).float()
+    labels = batch["labels"]
+    mask = batch.get("label_mask")
+    if mask is None:
+        mask = torch.ones_like(labels, dtype=torch.bool)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    nll = torch.sum(torch.where(mask, lse - ll, 0.0)) / torch.clamp_min(
+        torch.sum(mask.float()), 1.0)
+    return nll, {"nll": nll}
 
 
 # ---------------------------------------------------------------------------

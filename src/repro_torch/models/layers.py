@@ -67,8 +67,9 @@ def clamped(idx, n: int):
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A serving weight: no gradient is tracked (the training slice, which
-    is not ported yet, will ask for them)."""
+    """A weight made without a gradient: the serving path tracks none, and
+    the trainer switches gradients on for the span of a step
+    (``training.train_loop.trainable``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -42,7 +42,7 @@ class MoEConfig:
     n_shared_experts: int = 0      # Qwen-style always-on experts
     shared_d_ff: int = 0
     capacity_factor: float = 1.25
-    aux_weight: float = 0.01       # read by the training slice (not yet)
+    aux_weight: float = 0.01       # router loss weight in transformer.loss_fn
     groups: int = 1                # dispatch groups
 
 

@@ -9,9 +9,9 @@ follows ``lax.top_k``'s (``moe.top_k``: a stable descending sort, ties to
 the lowest index). The JAX ``constrain`` calls are no-ops without a mesh
 and are left out. No Pallas kernel lies on this path, in JAX either.
 
-Not ported yet (ROADMAP Queue 1 item 14.4): the losses
-(``bert4rec_sampled_loss``, ``bert4rec_loss``, ``twotower_loss``,
-``bce_loss``), which belong to the training slice.
+The training losses: ``bce_loss`` (BST, xDeepFM), ``bert4rec_loss`` and
+its sampled-softmax form ``bert4rec_sampled_loss``, ``twotower_loss``;
+each returns ``(loss, {"nll": loss})``.
 """
 from __future__ import annotations
 
@@ -24,8 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.stores import resolve_device
-from .layers import (MLP, init_linear, layer_norm, mlp, n_mlp_layers,
-                     normal_param, param, take)
+from .layers import (MLP, clamped, init_linear, layer_norm, mlp,
+                     n_mlp_layers, normal_param, param, take)
 from .moe import top_k as _top_k
 
 # Bytes of the CIN's outer product held at once: at xDeepFM's full width
@@ -296,6 +296,40 @@ def bert4rec_forward(params: Bert4Rec, batch: Dict, cfg: Bert4RecConfig):
     return x @ params.item_emb.T + params.out_bias
 
 
+def bert4rec_sampled_loss(params: Bert4Rec, batch: Dict,
+                          cfg: Bert4RecConfig):
+    """Sampled-softmax masked-item loss for production vocab sizes.
+
+    batch: {items [B, T], mask_pos [B, M], labels [B, M], neg_ids [K]}.
+    The label item competes against K shared negatives (logQ omitted: the
+    sampler is uniform in the synthetic pipeline).
+    """
+    x = _encode(params, take(params.item_emb, batch["items"]), cfg.n_heads)
+    pos = batch["mask_pos"].long()
+    hm = torch.gather(x, 1, pos[..., None].expand(-1, -1, x.shape[-1]))
+    lab_e = take(params.item_emb, batch["labels"])               # [B,M,D]
+    neg_e = take(params.item_emb, batch["neg_ids"])              # [K,D]
+    V = params.out_bias.shape[0]
+    pos_logit = torch.sum(hm * lab_e, dim=-1, dtype=torch.float32) \
+        + params.out_bias[clamped(batch["labels"], V)]
+    neg_logit = torch.einsum("bmd,kd->bmk", hm.float(), neg_e.float()) \
+        + params.out_bias[clamped(batch["neg_ids"], V)][None, None, :]
+    lse = torch.logsumexp(torch.cat([pos_logit[..., None], neg_logit],
+                                    dim=-1), dim=-1)
+    nll = torch.mean(lse - pos_logit)
+    return nll, {"nll": nll}
+
+
+def bert4rec_loss(params: Bert4Rec, batch: Dict, cfg: Bert4RecConfig):
+    """Masked-position cross entropy. batch: items, labels, loss_mask."""
+    logits = bert4rec_forward(params, batch, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
+    m = batch["loss_mask"].float()
+    nll = torch.sum((lse - ll) * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return nll, {"nll": nll}
+
+
 def bert4rec_topk_serve(params: Bert4Rec, batch: Dict, cfg: Bert4RecConfig,
                         top_k: int = 100, n_chunks: int = 16):
     """Next-item top-k for the last position, hierarchical over vocab
@@ -380,3 +414,30 @@ def retrieval_scores(params: TwoTower, batch: Dict, cfg: TwoTowerConfig,
     cand = item_tower(params, batch["cand_ids"], cfg)    # [N, D]
     v, i = _top_k(u @ cand.T, top_k)
     return v, i.int()
+
+
+def twotower_loss(params: TwoTower, batch: Dict, cfg: TwoTowerConfig):
+    """In-batch sampled softmax with logQ correction.
+
+    batch: {user_id [B], hist [B, H], pos_item [B], item_logq [B]}.
+    """
+    u = user_tower(params, batch, cfg)                   # [B, D]
+    v = item_tower(params, batch["pos_item"], cfg)       # [B, D]
+    logits = (u @ v.T) / cfg.temperature                 # [B, B]
+    if cfg.logq_correction and "item_logq" in batch:
+        logits = logits - batch["item_logq"][None, :]
+    logits = logits.float()
+    labels = torch.arange(u.shape[0], device=logits.device)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[:, None])[:, 0]
+    nll = torch.mean(lse - ll)
+    return nll, {"nll": nll}
+
+
+def bce_loss(logits, labels):
+    """Binary cross entropy of logits, shared by BST and xDeepFM."""
+    z = logits.float()
+    y = labels.float()
+    nll = torch.mean(torch.clamp_min(z, 0) - z * y
+                     + torch.log1p(torch.exp(-torch.abs(z))))
+    return nll, {"nll": nll}

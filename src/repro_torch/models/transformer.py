@@ -9,16 +9,24 @@ runs attention through ``ops.flash_attention``: the hand-written kernel on
 CUDA, its plain version on the CPU. A block holds a mixture-of-experts FFN
 (``models/moe.py``) where the config has ``moe``.
 
-Not ported yet (ROADMAP Queue 1 item 14.4): ``loss_fn``, the sharding
-rules and rematerialisation, which belong to the training slice.
+Training: :func:`loss_fn` is next-token cross entropy plus the MoE router
+loss. Where gradients are on, each block runs under the config's
+rematerialisation policy (``remat``): ``"full"`` recomputes the block in
+the backward pass, ``"dots"`` keeps the outputs of the matrix products
+with no batch dimension (the parameter products; JAX's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest,
+``"none"`` keeps everything. The sharding rules are JAX's tables, as data:
+one card has no mesh to apply them to.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.stores import resolve_device
 from . import kv_cache as kvc
@@ -42,7 +50,7 @@ class LMConfig:
     rope_theta: float = 10000.0
     moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"
-    remat: str = "full"               # read by the training slice (not yet)
+    remat: str = "full"               # none | full | dots
     tie_embeddings: bool = False
     scan_unroll: int = 1              # JAX scan unroll; no effect here
 
@@ -115,7 +123,10 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """embed [Vp, d], blocks, norm_f [d], lm_head [d, Vp] (untied)."""
+    """embed [Vp, d], blocks, norm_f [d], lm_head [d, Vp] (untied). The
+    JAX tree stacks ``blocks`` on a leading layer dim (``STACKED``)."""
+
+    STACKED = "blocks"
 
     def __init__(self, cfg: LMConfig, device, gen=None):
         super().__init__()
@@ -137,6 +148,47 @@ def init_params(cfg: LMConfig, *, generator: torch.Generator,
     return LM(cfg, resolve_device(device), generator)
 
 
+def params_sharding_rules():
+    """(path_regex, logical axes per dim) — Megatron-style TP (training).
+
+    Block params are scan-STACKED in the JAX tree: leading dim is the layer
+    index, so every blocks/ rule starts with None for the L dim."""
+    return [
+        (r"embed", ("tp", None)),                      # vocab-sharded
+        (r"lm_head", (None, "tp")),
+        (r"attn/w[qkv]$", (None, None, "tp")),         # [L, d, H*hd]
+        (r"attn/wo$", (None, "tp", None)),             # [L, H*hd, d]
+        (r"ffn/w_(gate|up)$", (None, None, "tp")),     # [L, d, ff]
+        (r"ffn/w_down$", (None, "tp", None)),          # [L, ff, d]
+        # Expert weights: FSDP-style 2D sharding (dp x tp), stored fully
+        # sharded, gathered per layer on use.
+        (r"moe/router$", (None, None, None)),
+        (r"moe/w_(gate|up)$", (None, None, "dp", "tp")),   # [L, E, d, f]
+        (r"moe/w_down$", (None, None, "tp", "dp")),        # [L, E, f, d]
+        (r"moe/shared/w_(gate|up)$", (None, "dp", "tp")),
+        (r"moe/shared/w_down$", (None, "tp", "dp")),
+    ]
+
+
+def serve_sharding_rules():
+    """2D (dp x tp) weight sharding for serving: with no optimizer keeping
+    params hot per dp replica, weights shard over BOTH axes and are
+    gathered per layer as used."""
+    return [
+        (r"embed", ("tp", "dp")),
+        (r"lm_head", ("dp", "tp")),
+        (r"attn/w[qkv]$", (None, "dp", "tp")),
+        (r"attn/wo$", (None, "tp", "dp")),
+        (r"ffn/w_(gate|up)$", (None, "dp", "tp")),
+        (r"ffn/w_down$", (None, "tp", "dp")),
+        (r"moe/router$", (None, None, None)),
+        (r"moe/w_(gate|up)$", (None, None, "dp", "tp")),
+        (r"moe/w_down$", (None, None, "tp", "dp")),
+        (r"moe/shared/w_(gate|up)$", (None, "dp", "tp")),
+        (r"moe/shared/w_down$", (None, "tp", "dp")),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -151,6 +203,33 @@ def _block_apply(block: Block, x, positions, cfg: LMConfig,
     else:
         h, aux = swiglu(block.ffn, rms_norm(x, block.ln_ffn)), 0.0
     return x + h, cache, aux
+
+
+# Matrix products with no batch dimension: ``x @ w`` with a 2-D weight
+# reaches the dispatcher as ``mm`` (``addmm`` with a bias); the attention
+# einsums are ``bmm`` and are recomputed.
+_NO_BATCH_DOTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: LMConfig):
+    """``fn`` under the config's rematerialisation policy where gradients
+    are on (the serving path runs ``fn`` as it is)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _save_dots)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                          context_fn=context)
+    if cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: need none, full or dots")
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
 
 
 def _layer_cache(caches: Dict, i: int) -> Dict:
@@ -171,8 +250,14 @@ def forward(params: LM, tokens, cfg: LMConfig, *, positions=None,
     x = params.embed[tokens].to(cfg.torch_dtype)
     auxs = []
     for i, block in enumerate(params.blocks):
-        cache = None if caches is None else _layer_cache(caches, i)
-        x, _, aux = _block_apply(block, x, positions, cfg, cache)
+        if caches is None:
+            body = _remat(functools.partial(_block_apply, block,
+                                            positions=positions, cfg=cfg,
+                                            cache=None), cfg)
+            x, _, aux = body(x)
+        else:
+            x, _, aux = _block_apply(block, x, positions, cfg,
+                                     _layer_cache(caches, i))
         auxs.append(aux)
     x = rms_norm(x, params.norm_f)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
@@ -183,6 +268,24 @@ def forward(params: LM, tokens, cfg: LMConfig, *, positions=None,
         logits = logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
     aux = torch.stack(auxs).mean() if cfg.moe else 0.0
     return logits, caches, aux
+
+
+def loss_fn(params: LM, batch: Dict, cfg: LMConfig):
+    """Next-token cross entropy; batch = {tokens [B, T+1]} or tokens/labels.
+    Returns (loss, {"nll", "aux"}), the MoE router loss weighted into the
+    loss by ``aux_weight``."""
+    if "labels" in batch:
+        tokens, labels = batch["tokens"], batch["labels"]
+    else:
+        tokens, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    logits, _, aux = forward(params, tokens, cfg)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = torch.mean(lse - ll)
+    if cfg.moe:
+        return nll + cfg.moe.aux_weight * aux, {"nll": nll, "aux": aux}
+    return nll, {"nll": nll, "aux": torch.zeros_like(nll)}
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ control's fused flushes against per-tick steps on the card, a compaction
 fold on the card against the same fold on the CPU, the LM's SMOKE
 models (dense and MoE) and the MoE layer on the card against the CPU,
 the autotuner on the card, the engine on the card against the port's
-reference engine, and the recsys and GAT SMOKE models, JAX's gather
-rules and the top-k tie order on the card against the CPU.
+reference engine, the recsys and GAT SMOKE models, JAX's gather rules
+and the top-k tie order on the card against the CPU, and training:
+``flash_attention``'s gradients through the kernel forward against the
+twin's, and SMOKE train steps on the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips it where there is no
 card (the CPU test run). This file imports neither JAX nor the JAX package,
@@ -937,6 +939,75 @@ def test_lm_smoke_on_card_matches_cpu(cuda, arch):
         cl, caches["cpu"] = tr.decode_step(cpu, nxt, cfg, caches["cpu"])
     torch.testing.assert_close(gl.cpu(), cl, **tol)
     assert tk.LAUNCHES["flash_attention"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradients_through_the_kernel_equal_the_twins(
+        cuda, dtype):
+    """``ops.flash_attention`` runs the kernel forward and the twin's
+    backward (as JAX's ``custom_vjp`` does): its q/k/v gradients equal the
+    twin's own autograd gradients bit for bit, since the backward
+    recomputes from the same q/k/v with the same upstream gradient."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 8, 96, 64), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2, 2, 96, 64), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    w = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    grads = []
+    for fn in (lambda *a: ops.flash_attention(*a, True, 32),
+               lambda *a: ref.flash_attention_ref(*a, causal=True,
+                                                  window=32)):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = tk.LAUNCHES["flash_attention"]
+        out = fn(*leaves)
+        grads.append(torch.autograd.grad((out.float() * w.float()).sum(),
+                                         leaves))
+        grads[-1] += (tk.LAUNCHES["flash_attention"] - before,)
+    assert grads[0][3] == 1 and grads[1][3] == 0
+    for a, b in zip(grads[0][:3], grads[1][:3]):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "qwen2-moe-a2.7b"])
+def test_lm_smoke_train_steps_on_card_match_cpu(cuda, arch):
+    """Three AdamW steps of the SMOKE model (f32, TF32 off) on the card
+    against the same weights and batches on the CPU: losses within rtol
+    1e-4, every parameter and state leaf within 1e-3 relative RMS (the CPU
+    tests' trajectory bar); the kernel runs once a layer a step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticTokenStream
+    from repro_torch.models import api, convert, transformer as tr
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(arch).smoke_config
+    tcfg = TrainConfig(opt=opt.AdamWConfig(lr=3e-3, warmup_steps=1,
+                                           total_steps=3))
+    data = SyntheticTokenStream(LMDataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=32, batch_size=4))
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = tr.init_params(cfg, generator=torch.Generator().manual_seed(
+            0), device="cpu").to(dev)
+        state = init_train_state(model, tcfg)
+        step = make_train_step(api.loss_fn(cfg), tcfg)
+        tk.reset_launches()
+        losses = []
+        for s in range(3):
+            model, state, m = step(model, state, {"tokens": torch.from_numpy(
+                data.batch(s)).to(dev)})
+            losses.append(float(m["loss"]))
+        runs[str(dev)] = (losses, convert.train_leaves(model, state),
+                          tk.LAUNCHES["flash_attention"])
+    (cl, cs, cn), (gl, gs, gn) = runs["cpu"], runs[str(cuda)]
+    assert cn == 0 and gn == 3 * cfg.n_layers
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    for a, b in zip(gs, cs):
+        a, b = a.cpu().double(), b.double()
+        assert float((a - b).norm()) <= 1e-3 * max(float(b.norm()), 1e-30)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b"])

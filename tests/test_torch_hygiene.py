@@ -392,3 +392,51 @@ def test_sharded_entry_points_default_to_cuda_and_refuse_without_it(
     with pytest.raises(RuntimeError, match="CUDA"):
         entry(tmp_path / "cuda")
     assert entry(tmp_path / "cpu", device="cpu").type == "cpu"
+
+
+def _lm_batch_fn(tmp_path, **kw):
+    from repro_torch.launch.train import make_batch_fn
+    cfg = _smoke_lm()
+    return make_batch_fn(cfg, "lm", 2, 8, **kw)(0)["tokens"].device
+
+
+def _recsys_batch_fn(tmp_path, **kw):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_batch_fn
+    cfg = get_arch("bert4rec").smoke_config
+    return make_batch_fn(cfg, "recsys", 4, 8, **kw)(0)["items"].device
+
+
+def _gnn_batch_fn(tmp_path, **kw):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_batch_fn
+    cfg = get_arch("gat-cora").smoke_config
+    return make_batch_fn(cfg, "gnn", 4, 8, **kw)(0)["x"].device
+
+
+def _train_run(tmp_path, device=None):
+    from repro_torch.launch import train
+    argv = ["--steps", "1", "--batch", "2", "--seq", "8", "--ckpt-dir",
+            str(tmp_path)] + (["--device", device] if device else [])
+    return train.run(argv, log=lambda s: None)["params"].embed.device
+
+
+def _train_main(tmp_path, device=None):
+    from repro_torch.launch import train
+    argv = ["--steps", "1", "--arch", "bst", "--batch", "2", "--ckpt-dir",
+            str(tmp_path)] + (["--device", device] if device else [])
+    assert train.main(argv) == 0
+    return torch.device(device)
+
+
+@pytest.mark.parametrize("entry", [_lm_batch_fn, _recsys_batch_fn,
+                                   _gnn_batch_fn, _train_run, _train_main],
+                         ids=lambda f: f.__name__.lstrip("_"))
+def test_training_entry_points_default_to_cuda_and_refuse_without_it(
+        monkeypatch, tmp_path, entry):
+    """The trainer and its batches run on CUDA unless the caller asks for
+    the CPU, and raise where CUDA is absent."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry(tmp_path / "cuda")
+    assert entry(tmp_path / "cpu", device="cpu").type == "cpu"

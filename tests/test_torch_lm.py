@@ -302,12 +302,24 @@ def test_serve_fn_and_make_inputs_drive_prefill_and_decode():
     assert logits.shape == (2, cfg.padded_vocab)
     assert caches["pos"].tolist() == [[33, 33]] * cfg.n_layers
     assert torch.isfinite(logits).all()
-    # LM train cells wait for the training slice (item 14.4); a GNN has no
+    # an LM train cell has no serving step (ValueError, as in JAX); its
+    # inputs are [B, seq + 1] tokens, JAX's draw for draw; a GNN has no
     # serving step and an unknown config none either (TypeError, as in JAX)
-    with pytest.raises(NotImplementedError, match="14.4"):
+    train = api.ShapeCell("t", "train", {"batch": 2, "seq": 32})
+    with pytest.raises(ValueError, match="train"):
         api.serve_fn(cfg, spec.cell("train_4k"))
-    with pytest.raises(NotImplementedError, match="14.4"):
-        api.make_inputs(rng, cfg, spec.cell("train_4k"), device="cpu")
+    with pytest.raises(ValueError, match="train"):
+        j_api.serve_fn(j_get_arch("h2o-danube-1.8b").smoke_config,
+                       j_api.ShapeCell("t", "train", {"batch": 2, "seq": 32}))
+    got = api.make_inputs(np.random.default_rng(3), cfg, train,
+                          device="cpu")["batch"]["tokens"]
+    exp = j_api.make_inputs(np.random.default_rng(3),
+                            j_get_arch("h2o-danube-1.8b").smoke_config,
+                            j_api.ShapeCell("t", "train", {"batch": 2,
+                                                           "seq": 32}))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(exp["batch"]["tokens"]))
     with pytest.raises(TypeError):
         api.serve_fn(get_arch("gat-cora").smoke_config, pre)
     with pytest.raises(TypeError):

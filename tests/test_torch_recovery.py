@@ -11,10 +11,11 @@ chain (delta == full under both layouts, corrupt-delta and torn-manifest
 fallback, retention that never strands a delta, a shape change forcing a
 full). Beyond the JAX tests: a CPU save/mutate/save cycle showing the
 delta shadow owns its bytes (the port's stores mutate in place and
-``.numpy()`` of a CPU tensor aliases it), the refusal of leaves npz
-cannot store (bfloat16) and of raw-viewed snapshots, and the refusal of a
-log whose advertised compaction base is gone along with the segments
-below it.
+``.numpy()`` of a CPU tensor aliases it), bfloat16 leaves stored as their
+bits (``raw_dtypes``, as the JAX package stores them), the refusal of
+leaves npz cannot store (float8, torch's uint16 and uint64) and of
+snapshots naming another raw dtype, and the refusal of a log whose
+advertised compaction base is gone along with the segments below it.
 
 Imports torch and ``repro_torch`` only.
 """
@@ -276,7 +277,7 @@ def _blob(ckpt, step):
         return f.read()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.uint16,
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.uint16,
                                    torch.uint64])
 def test_unstorable_leaves_are_refused(tmp_path, dtype):
     ckpt = CheckpointManager(str(tmp_path))
@@ -285,15 +286,35 @@ def test_unstorable_leaves_are_refused(tmp_path, dtype):
     assert ckpt.steps() == []
 
 
+def test_bf16_leaves_round_trip_as_their_bits(tmp_path):
+    """A bfloat16 leaf is stored as its uint16 bits with ``raw_dtypes``
+    naming it, and restores bit for bit, through a delta too."""
+    ckpt = CheckpointManager(str(tmp_path), full_interval=2)
+    a = torch.randn(8, 3, generator=torch.Generator().manual_seed(0)).to(
+        torch.bfloat16)
+    b = a.clone()
+    b[5] = -0.0
+    for step, leaf in ((1, a), (2, b)):
+        ckpt.save(step, [leaf, torch.arange(4)])
+        assert ckpt.manifest(step)["raw_dtypes"] == {"leaf_0": "bfloat16"}
+    assert ckpt.manifest(2)["kind"] == "delta"
+    for step, leaf in ((1, a), (2, b)):
+        got, _ = ckpt.restore([torch.zeros(1, dtype=torch.bfloat16),
+                               torch.zeros(1, dtype=torch.int64)], step)
+        assert got[0].dtype == torch.bfloat16
+        assert torch.equal(got[0].view(torch.int16), leaf.view(torch.int16))
+
+
 def test_raw_viewed_snapshot_is_refused(tmp_path):
-    """A manifest recording raw-viewed leaves (the JAX package writes one
-    for bfloat16) is refused on restore, not read as its raw view."""
+    """A manifest recording a raw-viewed dtype other than bfloat16 (the JAX
+    package writes one for any ``ml_dtypes`` leaf) is refused on restore,
+    not read as its raw view."""
     ckpt = CheckpointManager(str(tmp_path))
     ckpt.save(1, [torch.zeros(16, dtype=torch.int16)])
     path = os.path.join(ckpt._step_dir(1), "MANIFEST.json")
     with open(path) as f:
         man = json.load(f)
-    man["raw_dtypes"] = {"leaf_0": "bfloat16"}
+    man["raw_dtypes"] = {"leaf_0": "float8_e4m3fn"}
     with open(path, "w") as f:
         json.dump(man, f)
     with pytest.raises(ValueError, match="raw-viewed"):

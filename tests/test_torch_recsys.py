@@ -170,13 +170,9 @@ def test_params_carried_across_by_convert(arch):
 @pytest.mark.parametrize("arch", list(j_list_archs()))
 def test_input_specs_match_jax(arch):
     """Every cell's input tree, shape and dtype for shape and dtype, at the
-    full config (an LM's caches too); LM train cells wait for item 14.4."""
+    full config (an LM's caches and its train cell's tokens too)."""
     spec, jspec = get_arch(arch), j_get_arch(arch)
     for cell, jcell in zip(spec.shapes, jspec.shapes):
-        if spec.family == "lm" and cell.kind == "train":
-            with pytest.raises(NotImplementedError, match="14.4"):
-                api.input_specs(spec.config, cell)
-            continue
         got = api.input_specs(spec.config, cell)
         exp = j_api.input_specs(jspec.config, jcell)
         flat = jax.tree_util.tree_flatten_with_path(exp)[0]
@@ -383,17 +379,22 @@ def test_xdeepfm_cin_in_row_chunks_equals_one_block(monkeypatch):
 
 def test_serving_api_boundaries():
     """A GNN has no serving step (``TypeError``, as in JAX); the training
-    half raises ``NotImplementedError`` naming item 14.4."""
+    half answers for it as JAX's does (replicated, batch over 'dp', the
+    masked node loss), and an unknown config is a ``TypeError`` there
+    too."""
     gcfg = get_arch("gat-cora").smoke_config
+    jgcfg = j_get_arch("gat-cora").smoke_config
     with pytest.raises(TypeError):
         api.serve_fn(gcfg, SERVE)
     with pytest.raises(TypeError):
-        j_api.serve_fn(j_get_arch("gat-cora").smoke_config, SERVE)
+        j_api.serve_fn(jgcfg, SERVE)
     with pytest.raises(TypeError):
         api.init_params(object(), generator=torch.Generator(), device="cpu")
-    for fn in (api.abstract_params, api.sharding_rules, api.serve_rules,
-               api.loss_fn):
-        with pytest.raises(NotImplementedError, match="14.4"):
-            fn(gcfg)
-    with pytest.raises(NotImplementedError, match="14.4"):
-        api.batch_axis_for(gcfg, SERVE)
+    assert api.sharding_rules(gcfg) == j_api.sharding_rules(jgcfg) == []
+    assert api.serve_rules(gcfg) == j_api.serve_rules(jgcfg) == []
+    assert api.batch_axis_for(gcfg, SERVE) == \
+        j_api.batch_axis_for(jgcfg, SERVE) == "dp"
+    assert callable(api.loss_fn(gcfg))
+    for fn in (api.loss_fn, j_api.loss_fn):
+        with pytest.raises(TypeError):
+            fn(object())
