@@ -11,6 +11,7 @@
     python3 chip_smoke.py --moe-only
     python3 chip_smoke.py --recsys-only
     python3 chip_smoke.py --train-only
+    python3 chip_smoke.py --batch-only
 
 Phases, each of which must pass:
 
@@ -137,21 +138,23 @@ Phases, each of which must pass:
      serve_assist``'s loop on the phase-4 hash configuration and stream
      with the ``steve_jobs_scenario`` event (two rt replicas, the
      background engine, the durable log, delta-chained state snapshots
-     of both engines, two frontends behind a ``ServerSet``), crashed
-     right after tick 55 (the end of a log segment); ``recover_service``
-     on its directories must restore both engines bit for bit against
-     host copies of their states at the crash; then the loop resumes with
-     ``recover`` through tick 72 (the spelling job at tick 60, requests
-     at 60 and 72). Printed with the card's name and power limit: ms per
-     stack tick, each engine's full and delta save ms, whole-stack time
-     to fresh against the 80-s rank period, the spelling job's ms and
-     corrections, ``ServerSet.request`` p50/p99 over 1,000 live query
-     texts, the frontends' ``rt_lag_ticks``/``bg_lag_ticks``,
-     ``related('steve jobs')`` at tick 72 and the event terms it holds,
+     of both engines, two frontends behind a ``ServerSet``), cut in
+     depth to 49 ticks: the event and the spelling job at tick 36 (the
+     launcher's 60, ``SERVE_EVENT_AT``), crashed right after tick 31 (the
+     end of a log segment, 7 ticks past both engines' tick-24
+     snapshots); ``recover_service`` on its directories must restore both
+     engines bit for bit against host copies of their states at the
+     crash; then the loop resumes with ``recover`` through tick 48
+     (requests at 36 and 48). Printed with the card's name and power
+     limit: ms per stack tick, each engine's full and delta save ms,
+     whole-stack time to fresh against the 80-s rank period, the spelling
+     job's ms and corrections, ``ServerSet.request`` p50/p99 over 1,000
+     live query texts, the frontends' ``rt_lag_ticks``/``bg_lag_ticks``,
+     ``related('steve jobs')`` at tick 48 and the event terms it holds,
      peak device memory and the phase's launches (counts set to 0 before,
      read after). ``decay_prune_multi``, ``score_gate``, ``bucket_topk``
-     and ``edit_distance`` must launch, and the tick-72 answer must be
-     non-empty and come from the tick-72 table;
+     and ``edit_distance`` must launch, and the tick-48 answer must be
+     non-empty and come from the tick-48 table;
   9. a flash crowd at deployment scale — ``serve_assist``'s loop on the
      hash configuration under its firehose workload (1,024 queries and 64
      tweets a 10-s tick, a 50x spike from tick 16 capped at 16,384
@@ -325,7 +328,38 @@ Phases, each of which must pass:
      off, ids drawn over whole tables, after a card-against-CPU check of
      the loss and every gradient leaf on 64 rows (a GAT's whole graph):
      ms, rows/s, FLOP share of the f32 peak, peak GiB (at most 70), no
-     kernel launched.
+     kernel launched;
+ 16. the paper's §3 batch baseline — ``data/batch_pipeline.BatchPipeline``
+     (hours compressed to 20 ticks, a 2-hour window, each job a fresh
+     engine that re-ingests its window and ranks once) with the
+     ``steve_jobs_scenario`` event at tick 30, seed 1: (a) at
+     ``benchmarks/bench_latency.py``'s sizes (1,024 queries and 64 tweets
+     a 30-s tick, engine 2^14/2^16/2^13), 40 ticks, the pipeline on the
+     card against the same pipeline on the CPU: every job's ``done_s``
+     exactly equal and its suggestions under the parity contract; (b) at
+     the hash cell's widths (16,384 queries and 2,048 tweets a tick,
+     engine 2^22/2^24/2^20, a rank cycle every 10 ticks), 90 ticks fed
+     tick by tick to a streaming engine and to the pipeline (jobs at
+     ticks 20, 40, 60 and 80): the streaming engine must surface a
+     related term for the head query within 10 sim-minutes, every job
+     must drop nothing, hold a suggestion table and finish at the latency
+     model's arithmetic, and the batch path must launch ``score_gate`` and
+     ``bucket_topk`` 4 times each and ``decay_prune_multi`` never (counts
+     set to 0 before each tick's call, read after); printed with the
+     card's name and power limit: each job's wall split (construction,
+     re-ingest and ms a tick, rank cycle), live slots, drops and peak
+     GiB, the streaming engine's ms a tick and rank ms, and the streaming,
+     typical and best-case batch times to suggestion in sim-minutes,
+     computed as ``bench_latency.py`` computes them; (c) the single-lane
+     ``decay_prune`` on the streaming engine's query store (C = 2^22)
+     against its plain version (lanes and live count bit for bit, the
+     total within ``DECAY_TOTAL_RTOL``), and ``insert_accumulate_twopass``
+     of the last tick's query batch into an empty 2^22 table, the card
+     against the CPU bit for bit and against the fused insert as a map.
+     Item 15's other kernel entries run in phase 2: ``ops.assoc_score``
+     on the synthetic 2^24 lanes (bit for bit) and ``chain_find_depth``
+     on the first chain column of the region run's largest pair batch
+     (exact, against the CPU).
 
 The second-to-last line is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -348,7 +382,8 @@ runs phase 12 alone; ``--moe-only`` builds them and runs the MoE SMOKE
 models of phase 3 and phase 13 alone; ``--recsys-only`` builds nothing
 (no kernel lies on its path) and runs the recsys and GNN SMOKE models of
 phase 3 and phase 14 alone; ``--train-only`` builds ``flash_attention``
-alone and runs phase 15 alone.
+alone and runs phase 15 alone; ``--batch-only`` builds the kernels and
+runs phase 16 alone.
 ``--root DIR`` takes the ``repro_torch`` package from ``DIR/src``, where
 DIR lies inside this checkout (a parent commit unpacked with ``git
 archive`` under ``build/``), so one call on one card profiles two trees.
@@ -728,9 +763,17 @@ def check_assoc_score(C: int, dev, floor):
     are 0), its wrapper's and plain version's times."""
     from repro_torch.core.ranking import RankConfig
     from repro_torch.kernels.assoc_score import assoc_score, score_body
+    import torch
+    from repro_torch.kernels import ops
     coefs = RankConfig().coefs
     lanes, _, _, sc = _score_inputs(C, dev)
     r = assoc_score_report("synthetic lanes", lanes, sc[:2], coefs, floor)
+    got = ops.assoc_score(*lanes, sc[0], sc[1], coefs=coefs)
+    if not torch.equal(got.view(torch.int32), score_body(
+            *lanes, sc[0], sc[1], coefs).view(torch.int32)):
+        raise AssertionError("ops.assoc_score differs from the plain version")
+    log(f"  ops.assoc_score (the engine-facing entry) at C={C}: equal to "
+        f"the plain version bit for bit")
     wrapper_ms = time_ms(lambda: assoc_score(*lanes, sc[0], sc[1],
                                              coefs=coefs))
     plain_ms = time_ms(lambda: score_body(*lanes, sc[0], sc[1], coefs))
@@ -1116,6 +1159,33 @@ def check_chain_find(table, batch, dev):
                 other_route_ms=other_ms, ms_by_rows_per_warp=sweep)
 
 
+def check_chain_find_depth(table, batch) -> None:
+    """``chain_find_depth`` (``chain_find.cu`` on a one-column chain, every
+    row active) on the first chain column of a region pair batch, the rows
+    that have a region there, held exactly against its plain version on
+    the CPU."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.region_probe import chain_find_depth
+    R, W = table.n_regions, table.width
+    regs, dh, dl, _ = batch
+    rows = (regs[:, 0] >= 0).nonzero().squeeze(1)
+    args = (table.key_hi.view(R, W), table.key_lo.view(R, W),
+            regs[rows, 0].contiguous(), dh[rows].contiguous(),
+            dl[rows].contiguous())
+    before = tk.LAUNCHES["chain_find"]
+    got = chain_find_depth(*args)
+    if tk.LAUNCHES["chain_find"] != before + 1:
+        raise AssertionError("chain_find_depth launched no kernel")
+    exp = chain_find_depth(*(a.cpu() for a in args))
+    if not torch.equal(got.cpu(), exp):
+        raise AssertionError("chain_find_depth differs from the plain version")
+    ms = time_ms(lambda: chain_find_depth(*args))
+    log(f"  chain_find_depth on the batch's first chain column: "
+        f"{len(rows)} rows, {int((exp < W).sum())} found in that region, "
+        f"equal to the plain version on the CPU; wrapper {ms!r} ms")
+
+
 def check_chain_find_batch(table, batch):
     """chain_find on another of the region run's batch sizes: held exactly
     against the plain version, its active share, rows a warp and time, and
@@ -1341,22 +1411,29 @@ def small_parity(dev, layout="hash", lazy=False):
         else:
             np.testing.assert_array_equal(x, y, err_msg=f"leaf_{i}")
         n_exact += x.tobytes() == y.tobytes()
-    sa, sb = engines[0].suggestions, engines[1].suggestions
+    held = suggestions_contract(engines[0].suggestions,
+                                engines[1].suggestions, "card vs CPU")
+    log(f"  {layout} layout, {'lazy' if lazy else 'sweep'} policy, card vs "
+        f"CPU: {n_exact}/{len(a)} leaves bit-identical, keys and "
+        f"slots exact, {held}")
+    return engines
+
+
+def suggestions_contract(sa, sb, label: str) -> str:
+    """Same sources; top-3 scores within rtol 5e-3, atol 1e-4; top-3
+    identities agree for at least 95% of sources."""
+    import numpy as np
     if set(sa) != set(sb) or not sa:
-        raise AssertionError("suggestion sources differ between card and CPU")
+        raise AssertionError(f"{label}: suggestion sources differ")
     agree = 0
     for f in sa:
         np.testing.assert_allclose([s for _, s in sa[f][:3]],
                                    [s for _, s in sb[f][:3]],
-                                   rtol=5e-3, atol=1e-4)
+                                   rtol=5e-3, atol=1e-4, err_msg=label)
         agree += [d for d, _ in sa[f][:3]] == [d for d, _ in sb[f][:3]]
     if agree < 0.95 * len(sa):
-        raise AssertionError(f"top-3 agreement {agree}/{len(sa)}")
-    log(f"  {layout} layout, {'lazy' if lazy else 'sweep'} policy, card vs "
-        f"CPU: {n_exact}/{len(a)} leaves bit-identical, keys and "
-        f"slots exact, {len(sa)} sources, top-3 identity agreement "
-        f"{agree}/{len(sa)}")
-    return engines
+        raise AssertionError(f"{label}: top-3 agreement {agree}/{len(sa)}")
+    return f"{len(sa)} sources, top-3 identity agreement {agree}/{len(sa)}"
 
 
 PLANTED = [("justin bieber", 900.0), ("justin beiber", 5.0),
@@ -2530,8 +2607,13 @@ def run_recovery(dev, card: str):
 # their tick-48 snapshots. (At tick 52 the writer's unsealed ticks 48-52
 # would die with the stack: recovery would land on the snapshot itself,
 # with nothing replayed, not on the crash-time state.)
-SERVE_CRASH_AT = 55
-SERVE_TICKS = 73              # resumed through tick 72
+# Phase 8's depth: the launcher's steve-jobs event and spelling job (tick
+# 60 in serve_assist) move to tick 36, so the crashed and resumed loops
+# cover 49 ticks instead of 73 with every check in place: the crash 7
+# ticks past both engines' tick-24 snapshots, requests at 36 and 48.
+SERVE_EVENT_AT = 36
+SERVE_CRASH_AT = 31
+SERVE_TICKS = 49              # resumed through tick 48
 SERVE_REQUESTS = 1000
 SERVE_KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk",
                  "edit_distance")
@@ -2550,8 +2632,9 @@ def run_serving(dev, card: str):
     deployment cell (two rt replicas, the bg engine, two frontends behind a
     ServerSet), crashed at ``SERVE_CRASH_AT``, the stack recovered by
     ``recover_service`` and held bit for bit against host copies of both
-    engines at the crash, then resumed with ``recover`` through tick 72.
-    Returns the phase's launch counts."""
+    engines at the crash, then resumed with ``recover`` through tick
+    ``SERVE_TICKS - 1``; the launcher's event and spelling job moved to
+    ``SERVE_EVENT_AT`` for the phase. Returns the phase's launch counts."""
     import os
     import tempfile
     import numpy as np
@@ -2567,7 +2650,17 @@ def run_serving(dev, card: str):
     t_phase = time.perf_counter()
     cfg, base = deployment_config("hash")
     bgcfg = background_config(cfg, rank_every_mult=3)
-    _, event = steve_jobs_scenario(base_cfg=base)
+    launcher_scenario = serve_assist.steve_jobs_scenario
+    launcher_spell_every = serve_assist.SPELL_EVERY
+
+    def moved_scenario(*a, **kw):
+        scfg, ev = steve_jobs_scenario(*a, **kw)
+        ev = dataclasses.replace(ev, t_start=SERVE_EVENT_AT)
+        return dataclasses.replace(scfg, events=(ev,)), ev
+
+    serve_assist.steve_jobs_scenario = moved_scenario
+    serve_assist.SPELL_EVERY = SERVE_EVENT_AT
+    _, event = moved_scenario(base_cfg=base)
     rank_period_ms = cfg.rank_every * base.tick_seconds * 1e3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2636,6 +2729,8 @@ def run_serving(dev, card: str):
         res = serve_assist.run(cfg, base, opts, dev, log=lines.append)
         walls["resumed_run"] = time.perf_counter() - t0
         serve_assist.spelling_cycle = spelling_cycle
+        serve_assist.steve_jobs_scenario = launcher_scenario
+        serve_assist.SPELL_EVERY = launcher_spell_every
         draws = {"live_run_ms": sum(r["draw_ms"] for r in ticks),
                  "resumed_run_ms": sum(r["draw_ms"] for r in res["ticks"]),
                  "resumed_run_skipped_ms": res["skip_draw_ms"],
@@ -2696,7 +2791,7 @@ def run_serving(dev, card: str):
         "requests_answered": answered,
         "rt_lag_ticks": metrics["rt_lag_ticks"],
         "bg_lag_ticks": metrics["bg_lag_ticks"],
-        "related_t72": route.suggestions, "event_terms_held": terms,
+        "related_last_tick": route.suggestions, "event_terms_held": terms,
         "peak_mem_gib": peak,
         "launches": {n: k for n, k in launches.items() if k}}
     log(f"[8] serving stack ({card}): " + json.dumps(report))
@@ -5509,6 +5604,451 @@ def run_train(dev, card: str, rows):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the paper's §3 batch baseline.
+# ---------------------------------------------------------------------------
+
+BATCH_TICKS = 90              # jobs at ticks 20, 40, 60 and 80
+BATCH_SMALL_TICKS = 40        # (a): jobs at ticks 20 and 40
+BATCH_TICKS_PER_HOUR = 20     # one compressed "hour" of logs
+BATCH_WINDOW_HOURS = 2
+BATCH_EVENT_AT = 30
+BATCH_SEED = 1
+BATCH_HEAD_K = 8              # the head query's suggestions looked at
+STREAM_TARGET_S = 600.0       # the paper's 10 minutes
+# The single-lane decay_prune's total against the plain version's: two
+# plain sums over the same lane in different orders.
+DECAY_TOTAL_RTOL = 1e-5
+# The two-pass insert's weight lane, card against CPU: a key's rows summed
+# in another order (the parity contract's weight tolerance).
+TWOPASS_WEIGHT_RTOL = 2e-3
+
+
+def batch_configs(full: bool):
+    """(EngineConfig, StreamConfig) of phase 16: the breaking-news
+    benchmark's sizes, or the hash cell's widths with its rank cadence of
+    5 sim-minutes; both with 30-s ticks."""
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.data.stream import StreamConfig
+    if full:
+        return (EngineConfig(query_capacity=1 << 22, cooc_capacity=1 << 24,
+                             session_capacity=1 << 20, decay_every=4,
+                             rank_every=10),
+                StreamConfig(vocab_size=65536, n_users=200000,
+                             queries_per_tick=16384, tweets_per_tick=2048,
+                             tick_seconds=30.0))
+    return (EngineConfig(query_capacity=1 << 14, cooc_capacity=1 << 16,
+                         session_capacity=1 << 13, decay_every=4,
+                         rank_every=10),
+            StreamConfig(vocab_size=1024, queries_per_tick=1024,
+                         tweets_per_tick=64, tick_seconds=30.0))
+
+
+def batch_stream(base):
+    """The steve-jobs event moved to ``BATCH_EVENT_AT`` on ``base``, seed
+    ``BATCH_SEED``. Returns (stream, head fp, related fps, event start s)."""
+    from repro_torch.data.stream import SyntheticStream, steve_jobs_scenario
+    scfg, event = steve_jobs_scenario(base_cfg=base)
+    scfg = dataclasses.replace(scfg, events=(
+        dataclasses.replace(event, t_start=BATCH_EVENT_AT),))
+    event = scfg.events[0]
+    stream = SyntheticStream(scfg, seed=BATCH_SEED)
+    return (stream, int(stream.tok.query_fp(event.terms[0])),
+            {int(stream.tok.query_fp(t)) for t in event.terms[1:]},
+            event.t_start * scfg.tick_seconds)
+
+
+def batch_pipeline(ecfg, scfg, device):
+    from repro_torch.data.batch_pipeline import (BatchPipeline,
+                                                 HadoopLatencyModel)
+    pipe = BatchPipeline(ecfg, HadoopLatencyModel(),
+                         tick_seconds=scfg.tick_seconds,
+                         window_hours=BATCH_WINDOW_HOURS, device=device)
+    pipe.ticks_per_hour = BATCH_TICKS_PER_HOUR
+    return pipe
+
+
+def expected_done_s(pipe, job: int) -> float:
+    """Job ``job``'s completion by the latency model, from its hours
+    alone: the window is hours max(0, job - window + 1)..job, each
+    visible an import lag after its last tick."""
+    hours = range(max(0, job - pipe.window_hours + 1), job + 1)
+    avail = max((h + 1) * pipe.ticks_per_hour * pipe.tick_seconds
+                + pipe.latency.import_lag_s for h in hours)
+    return avail + pipe.latency.compute_time_s(float(len(hours)))
+
+
+def batch_card_vs_cpu(dev) -> None:
+    """(a) BatchPipeline on the card against the same pipeline on the CPU,
+    on the breaking-news benchmark's sizes cut to 40 ticks."""
+    ecfg, base = batch_configs(full=False)
+    stream, _, _, _ = batch_stream(base)
+    ticks = [stream.gen_tick(t) for t in range(BATCH_SMALL_TICKS)]
+    pipes = {}
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        pipes[device] = batch_pipeline(ecfg, stream.cfg, device)
+        for ev, tw in ticks:
+            pipes[device].ingest_tick(ev, tw)
+        log(f"  (a) {BATCH_SMALL_TICKS} ticks on {device}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    card, cpu = pipes[dev].results, pipes["cpu"].results
+    if len(card) != len(cpu) or len(card) != \
+            BATCH_SMALL_TICKS // BATCH_TICKS_PER_HOUR:
+        raise AssertionError(f"(a) jobs: {len(card)} on the card, "
+                             f"{len(cpu)} on the CPU")
+    for i, ((sa, da), (sb, db)) in enumerate(zip(card, cpu)):
+        if da != db or da != expected_done_s(pipes[dev], i):
+            raise AssertionError(f"(a) job {i}: done_s {da} on the card, "
+                                 f"{db} on the CPU")
+        log(f"  (a) job {i} (hour {i}), card vs CPU: done_s {da!r} on "
+            f"both; " + suggestions_contract(sa, sb, f"(a) job {i}"))
+
+
+def _timed_batch_engines(jobs):
+    """Patch ``data.batch_pipeline``'s engine class with a subclass that
+    times (synced) each job's construction, steps and rank cycle into
+    ``jobs`` and records its live slots and drops. Returns the undo."""
+    import torch
+    from repro_torch.data import batch_pipeline as bp
+    base = bp.SearchAssistanceEngine
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    class TimedEngine(base):
+        def __init__(self, *a, **kw):
+            torch.cuda.reset_peak_memory_stats()
+            _, ms = synced(lambda: super(TimedEngine, self).__init__(*a, **kw))
+            jobs.append({"name": self.name, "construct_ms": ms, "ticks": 0,
+                         "ingest_ms": 0.0})
+
+        def step(self, *a, **kw):
+            out, ms = synced(lambda: super(TimedEngine, self).step(*a, **kw))
+            jobs[-1]["ticks"] += 1
+            jobs[-1]["ingest_ms"] += ms
+            return out
+
+        def run_rank_cycle(self):
+            out, ms = synced(super().run_rank_cycle)
+            st = self.state
+            jobs[-1].update(
+                rank_ms=ms, n_suggest=len(self.suggestions),
+                live_qstore=int(st.qstore.live_count()),
+                live_cooc=int(st.cooc.live_count()),
+                n_dropped={n: int(getattr(st, n).n_dropped)
+                           for n in ("qstore", "cooc", "sessions")},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            return out
+
+    bp.SearchAssistanceEngine = TimedEngine
+
+    def undo():
+        bp.SearchAssistanceEngine = base
+    return undo
+
+
+def hadoop_latency_s(pipe, head, related, t_event_s, best_case):
+    """``benchmarks/bench_latency.py``'s batch time to suggestion: the
+    earliest job whose table holds a related term for the head query,
+    done an import lag plus a window's compute after its last log."""
+    model, best = pipe.latency, None
+    for i, (sugg, _) in enumerate(pipe.results):
+        if {d for d, _ in sugg.get(head, [])} & related:
+            lag = model.import_lag_best_s if best_case else model.import_lag_s
+            done = (pipe.hours[i].generated_at_s + lag
+                    + model.compute_time_s(pipe.window_hours))
+            best = done if best is None else min(best, done)
+    return best - t_event_s if best is not None else math.inf
+
+
+def batch_vs_streaming(dev, card: str):
+    """(b) The paper's comparison at the hash cell's widths: one stream fed
+    to a streaming engine and to the batch pipeline, tick by tick. Returns
+    ({"batch": launches, "streaming": launches}, the streaming engine, the
+    last tick's (events, tweets))."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.core.engine import SearchAssistanceEngine
+    ecfg, base = batch_configs(full=True)
+    stream, head, related, t_event_s = batch_stream(base)
+    tick_s = stream.cfg.tick_seconds
+    eng = SearchAssistanceEngine(ecfg, device=dev)
+    pipe = batch_pipeline(ecfg, stream.cfg, dev)
+    jobs, step_ms, rank_ms, draw_ms = [], [], [], 0.0
+    rank = eng.run_rank_cycle
+
+    def timed_rank():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rank()
+        torch.cuda.synchronize()
+        rank_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.run_rank_cycle = timed_rank
+    launches = {"batch": {n: 0 for n in tk.KERNELS},
+                "streaming": {n: 0 for n in tk.KERNELS}}
+
+    def counted(path, fn):
+        torch.cuda.synchronize()
+        tk.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        for n, k in tk.LAUNCHES.items():
+            launches[path][n] += k
+
+    stream_latency = None
+    undo = _timed_batch_engines(jobs)
+    try:
+        for t in range(BATCH_TICKS):
+            t0 = time.perf_counter()
+            ev, tw = stream.gen_tick(t)
+            draw_ms += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            counted("streaming", lambda: eng.step(ev, tw))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counted("batch", lambda: pipe.ingest_tick(ev, tw))
+            if stream_latency is None and eng.suggestions:
+                hits = {d for d, _ in eng.suggest_fp(head, k=BATCH_HEAD_K)}
+                if hits & related:
+                    stream_latency = t * tick_s - t_event_s
+    finally:
+        undo()
+    n_jobs = BATCH_TICKS // BATCH_TICKS_PER_HOUR
+    if len(pipe.results) != n_jobs or len(jobs) != n_jobs:
+        raise AssertionError(f"(b) {len(pipe.results)} jobs ran")
+    first = None
+    for i, ((sugg, done), job) in enumerate(zip(pipe.results, jobs)):
+        job["done_s"] = done
+        job["hour"] = i
+        job["related_terms"] = len(
+            {d for d, _ in sugg.get(head, [])} & related)
+        if first is None and job["related_terms"]:
+            first = i
+        want = min(i + 1, BATCH_WINDOW_HOURS) * BATCH_TICKS_PER_HOUR
+        if job["ticks"] != want or any(job["n_dropped"].values()) \
+                or not sugg or job["n_suggest"] != len(sugg) \
+                or done != expected_done_s(pipe, i):
+            raise AssertionError(f"(b) job {i}: {job}")
+    if stream_latency is None or stream_latency > STREAM_TARGET_S:
+        raise AssertionError(f"(b) streaming time to suggestion "
+                             f"{stream_latency} s")
+    want = {"score_gate": n_jobs, "bucket_topk": n_jobs}
+    got = {n: k for n, k in launches["batch"].items() if k}
+    if got != want:
+        raise AssertionError(f"(b) batch launches {got}, want {want}")
+    for n in tk.PATH_KERNELS["hash"]:
+        if launches["streaming"][n] <= 0:
+            raise AssertionError(f"(b) streaming: {n} not launched")
+    lat = {"streaming": stream_latency,
+           "batch_typical": hadoop_latency_s(pipe, head, related, t_event_s,
+                                             False),
+           "batch_best_case": hadoop_latency_s(pipe, head, related,
+                                               t_event_s, True)}
+    if not all(math.isfinite(v) for v in lat.values()):
+        raise AssertionError(f"(b) times to suggestion: {lat}")
+    # each job resets the peak as it starts, so the phase's is the largest
+    peak = max([j["peak_gib"] for j in jobs]
+               + [torch.cuda.max_memory_allocated() / 2**30])
+    for job in jobs:
+        job["ms_a_tick"] = job["ingest_ms"] / job["ticks"]
+        job["wall_ms"] = job["construct_ms"] + job["ingest_ms"] + \
+            job["rank_ms"]
+    rec = {"card": card, "ticks": BATCH_TICKS,
+           "ticks_per_hour": BATCH_TICKS_PER_HOUR,
+           "window_hours": BATCH_WINDOW_HOURS, "event_at": BATCH_EVENT_AT,
+           "jobs": jobs, "first_job_with_a_related_term": first,
+           "streaming_ms_a_tick_p50": statistics.median(step_ms),
+           "streaming_ms_a_tick_max": max(step_ms),
+           "streaming_rank_ms": rank_ms,
+           "streaming_live_qstore": int(eng.state.qstore.live_count()),
+           "streaming_live_cooc": int(eng.state.cooc.live_count()),
+           "stream_draw_ms": draw_ms, "peak_gib": peak,
+           "time_to_suggestion_sim_min": {k: v / 60 for k, v in lat.items()},
+           "launches": {p: {n: k for n, k in d.items() if k}
+                        for p, d in launches.items()}}
+    log(f"[16] batch vs streaming ({card}): " + json.dumps(rec))
+    for job in jobs:
+        log(f"  (b) {job['name']} ({card}): wall {job['wall_ms']:.3f} ms = "
+            f"construct {job['construct_ms']:.3f} + re-ingest "
+            f"{job['ticks']} ticks {job['ingest_ms']:.3f} "
+            f"({job['ms_a_tick']:.3f} a tick) + rank {job['rank_ms']:.3f}; "
+            f"live qstore {job['live_qstore']}, cooc {job['live_cooc']}; "
+            f"{job['n_suggest']} sources; related terms for the head "
+            f"{job['related_terms']}; done {job['done_s'] / 60:.2f} sim-min;"
+            f" peak {job['peak_gib']:.3f} GiB")
+    m = rec["time_to_suggestion_sim_min"]
+    log(f"  (b) time to suggestion ({card}): streaming "
+        f"{m['streaming']!r} sim-min (target 10), batch typical "
+        f"{m['batch_typical']!r}, best case {m['batch_best_case']!r} "
+        f"(first job with a related term: {first}); streaming engine "
+        f"{rec['streaming_ms_a_tick_p50']:.3f} ms a tick (p50), rank "
+        f"{rank_ms}")
+    log(f"  (b) launches: batch {rec['launches']['batch']}, streaming "
+        f"{rec['launches']['streaming']}")
+    return launches, eng, (ev, tw)
+
+
+def check_decay_prune_single(qstore, cfg) -> dict:
+    """(c) The single-lane ``decay_prune`` on a live query store
+    (C = 2^22): keys, weight lane and live count bit for bit with the
+    plain version on the same card tensors, the total within
+    ``DECAY_TOTAL_RTOL`` (a different summation order)."""
+    import torch
+    from repro_torch import kernels as tk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decay_prune import decay_prune
+    kh, kl, w = qstore.key_hi, qstore.key_lo, qstore.lanes["weight"]
+    f, th = float(cfg.decay.factor(cfg.decay_every)), \
+        cfg.decay.prune_threshold
+    before = tk.LAUNCHES["decay_prune_multi"]
+    got = decay_prune(kh, kl, w, f, th)
+    if tk.LAUNCHES["decay_prune_multi"] != before + 1:
+        raise AssertionError("decay_prune launched no kernel")
+    exp = ref.decay_prune_ref(kh, kl, w, torch.tensor(f), th)
+    for g, e in zip(got[:3], exp[:3]):
+        if not torch.equal(g.view(torch.int32), e.view(torch.int32)):
+            raise AssertionError("decay_prune differs from the plain version")
+    if int(got[3]) != int(exp[4]):
+        raise AssertionError("decay_prune live count differs")
+    tot, etot = float(got[4]), float(exp[5])
+    if abs(tot - etot) > DECAY_TOTAL_RTOL * abs(etot):
+        raise AssertionError(f"decay_prune total {tot} against {etot}")
+    ms = time_ms(lambda: decay_prune(kh, kl, w, f, th))
+    plain_ms = time_ms(lambda: ref.decay_prune_ref(kh, kl, w,
+                                                   torch.tensor(f), th))
+    return {"capacity": kh.shape[0], "live_in": int(qstore.live_count()),
+            "live_out": int(got[3]), "total": tot, "plain_total": etot,
+            "wrapper_ms": ms, "plain_ms": plain_ms}
+
+
+def check_twopass_insert(dev, events, cfg) -> dict:
+    """(c) ``insert_accumulate_twopass`` for one deployment tick's query
+    batch into an empty 2^22 table, on the card and on the CPU, beside the
+    fused insert on both. Held: keys, slots, the count and tick lanes and
+    the drops bit for bit card against CPU; on each device the two-pass
+    table the same key-to-value map as the fused one, bit for bit; the
+    weight lane card against CPU within ``TWOPASS_WEIGHT_RTOL`` (both
+    inserts' segment sums add a key's rows in another order on the card),
+    its differing slots and largest relative difference printed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as te
+    from repro_torch.core import stores
+    from repro_torch.core.hashing import from_np_u32, join_fp, split_fp
+    q_hi, q_lo = split_fp(events.q_fp)
+    B = len(q_hi)
+    lanes = {"weight": torch.float32, "count": torch.float32,
+             "last_tick": torch.int32}
+
+    def args(d):
+        src = torch.tensor(np.asarray(events.src, np.int32), device=d)
+        return (from_np_u32(q_hi, d), from_np_u32(q_lo, d),
+                {"weight": te._source_weights(cfg, src),
+                 "count": torch.ones((B,), dtype=torch.float32, device=d),
+                 "last_tick": torch.full((B,), 7, dtype=torch.int32,
+                                         device=d)},
+                torch.tensor(np.asarray(events.valid, bool), device=d))
+
+    def host(t):
+        return {"key_hi": t.key_hi.cpu(), "key_lo": t.key_lo.cpu(),
+                **{n: v.cpu() for n, v in t.lanes.items()},
+                "n_dropped": t.n_dropped.cpu()}
+
+    out, ms = {}, {}
+    for kind, fn in (("twopass", stores.insert_accumulate_twopass),
+                     ("fused", stores.insert_accumulate)):
+        for d in (dev, "cpu"):
+            t = stores.make_table(cfg.query_capacity, lanes, device=d)
+            a = args(d)
+            if d != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = fn(t, *a, modes=te._Q_MODES, probe_rounds=cfg.probe_rounds)
+            if d != "cpu":
+                torch.cuda.synchronize()
+            ms[f"{kind} {d}"] = (time.perf_counter() - t0) * 1e3
+            out[kind, str(d)] = host(t)
+    card, cpu = out["twopass", str(dev)], out["twopass", "cpu"]
+    diff = {n: int((card[n].view(-1).view(torch.int32)
+                    != cpu[n].view(-1).view(torch.int32)).sum())
+            for n in card}
+    if any(diff[n] for n in card if n != "weight"):
+        raise AssertionError(f"insert_accumulate_twopass differs between "
+                             f"the card and the CPU: {diff}")
+    w_card, w_cpu = card["weight"], cpu["weight"]
+    rel = float(((w_card - w_cpu).abs() / w_cpu.abs().clamp_min(1e-30))
+                .max())
+    if rel > TWOPASS_WEIGHT_RTOL:
+        raise AssertionError(f"twopass weights card vs CPU: {rel}")
+    fused_diff = int((out["fused", str(dev)]["weight"]
+                      != out["fused", "cpu"]["weight"]).sum())
+    for d in (str(dev), "cpu"):
+        a, f = out["twopass", d], out["fused", d]
+        live = lambda t: (t["key_hi"] != 0) | (t["key_lo"] != 0)
+        ka = join_fp(a["key_hi"][live(a)].numpy().view(np.uint32),
+                     a["key_lo"][live(a)].numpy().view(np.uint32))
+        kf = join_fp(f["key_hi"][live(f)].numpy().view(np.uint32),
+                     f["key_lo"][live(f)].numpy().view(np.uint32))
+        oa, of = np.argsort(ka), np.argsort(kf)
+        same = int(a["n_dropped"]) == int(f["n_dropped"]) == 0 and \
+            np.array_equal(ka[oa], kf[of]) and all(
+                a[n][live(a)].numpy()[oa].tobytes()
+                == f[n][live(f)].numpy()[of].tobytes() for n in lanes)
+        if not same:
+            raise AssertionError(f"insert_accumulate_twopass and the fused "
+                                 f"insert give different maps on {d}")
+    _, counts = np.unique(events.q_fp[np.asarray(events.valid, bool)],
+                          return_counts=True)
+    slots_same = int(((card["key_hi"] == out["fused", str(dev)]["key_hi"])
+                      & (card["key_lo"] == out["fused", str(dev)]["key_lo"])
+                      & ((card["key_hi"] != 0) | (card["key_lo"] != 0)))
+                     .sum())
+    return {"batch": B, "unique_keys": len(ka),
+            "most_rows_a_key": int(counts.max()), "ms": ms,
+            "weight_slots_differing_card_vs_cpu": diff["weight"],
+            "weight_max_rel_diff_card_vs_cpu": rel,
+            "fused_weight_slots_differing_card_vs_cpu": fused_diff,
+            "slots_shared_with_fused": slots_same}
+
+
+def run_batch(dev, card: str):
+    """Phase 16: the paper's §3 batch baseline (Take One) against the
+    streaming engine (Take Two). Returns {"batch": ..., "batch_streaming":
+    ...} launch counts."""
+    import torch
+    t_phase = time.perf_counter()
+    log(f"[16] the §3 batch baseline: (a) card vs CPU at the breaking-news "
+        f"benchmark's sizes ({card})")
+    batch_card_vs_cpu(dev)
+    log(f"[16] (b) batch vs streaming at the hash cell's widths, "
+        f"{BATCH_TICKS} ticks ({card})")
+    launches, eng, (ev, _) = batch_vs_streaming(dev, card)
+    ecfg = eng.cfg
+    log("[16] (c) item 15's entries on the phase's inputs")
+    r = check_decay_prune_single(eng.state.qstore, ecfg)
+    log(f"  decay_prune on the streaming engine's qstore: {json.dumps(r)}; "
+        f"lanes and live count equal to the plain version, total within "
+        f"rtol {DECAY_TOTAL_RTOL}")
+    del eng
+    torch.cuda.empty_cache()
+    r = check_twopass_insert(dev, ev, ecfg)
+    log(f"  insert_accumulate_twopass, the last tick's query batch into a "
+        f"{ecfg.query_capacity}-slot table: {json.dumps(r)}; keys, slots, "
+        f"counts, ticks and drops equal card vs CPU, weights within rtol "
+        f"{TWOPASS_WEIGHT_RTOL}; on each device the same map as the fused "
+        f"insert")
+    torch.cuda.empty_cache()
+    log(f"  batch phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"batch": launches["batch"],
+            "batch_streaming": launches["streaming"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-region-only", action="store_true",
@@ -5541,6 +6081,10 @@ def main() -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="build flash_attention and run phase 15 "
                          "(training), and nothing else")
+    ap.add_argument("--batch-only", action="store_true",
+                    help="build the kernels and run phase 16 (the §3 batch "
+                         "baseline against the streaming engine), and "
+                         "nothing else")
     ap.add_argument("--root", default=str(ROOT),
                     help="with --profile-region-only or --profile-hash-only:"
                          " a directory inside this checkout whose "
@@ -5594,7 +6138,7 @@ def main() -> int:
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
     if (args.flash_crowd_only or args.tune_only or args.fleet_only
-            or args.sharded_only or args.moe_only):
+            or args.sharded_only or args.moe_only or args.batch_only):
         log(f"[1] card: {card} | torch {torch.__version__} cuda "
             f"{torch.version.cuda}")
         for stem in build.build_all():
@@ -5611,6 +6155,8 @@ def main() -> int:
             log("[3] MoE SMOKE models on the card vs the CPU")
             small_lm(dev, MOE_SMOKE_ARCHS)
             run_moe(dev, {})
+        if args.batch_only:
+            run_batch(dev, card)
         log(f"  total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -5704,6 +6250,7 @@ def main() -> int:
         "ticks)")
     table, batch, others = largest_chain_find_batch(dev, ticks)
     rows["chain_find"] = check_chain_find(table, batch, dev)
+    check_chain_find_depth(table, batch)
     rows["chain_find"]["other_batches"] = [
         check_chain_find_batch(table, b) for b in others.values()]
     log(f"  chain_find at its main-path shape: "
@@ -5784,6 +6331,10 @@ def main() -> int:
 
     # ---- 15. training ----
     launches["train"] = run_train(dev, card, rows)
+    torch.cuda.empty_cache()
+
+    # ---- 16. the §3 batch baseline ----
+    launches.update(run_batch(dev, card))
     log("kernels " + " ".join(f"{n}=ok" for n in rows))
 
     sources = {"decay_prune_multi": ("decay_prune.cu", "decay_prune.py:85"),

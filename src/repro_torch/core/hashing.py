@@ -43,6 +43,16 @@ def fingerprint(text: str) -> int:
     return fnv1a_64(text.encode("utf-8"))
 
 
+def combine_fp(a: int, b: int) -> int:
+    """Order-sensitive 64-bit combine of two fingerprints (directed pairs)."""
+    h = (a ^ 0x9E3779B97F4A7C15) & _MASK64
+    h = (h * FNV_PRIME) & _MASK64
+    h ^= b
+    h = (h * FNV_PRIME) & _MASK64
+    h ^= h >> 29
+    return h or 1
+
+
 def split_fp(fp) -> tuple:
     """fp64 -> (hi, lo) uint32 pair. Works on python ints and numpy arrays."""
     if isinstance(fp, (int, np.integer)):

@@ -37,6 +37,7 @@ from .hashing import combine_fp_device, probe_hash, to_np_u32, u32
 # Lane reduction modes.
 ADD = "add"    # accumulate (weights, counts)
 SET = "set"    # last-writer-wins (timestamps, src/dst fps)
+MAX = "max"    # running max
 
 # Lane spec for u32 values (stored as int32 bit views) and the engine's
 # lanes that use it; export views them back as uint32.
@@ -111,6 +112,15 @@ def _segment_sum(vals: torch.Tensor, seg_id: torch.Tensor, n: int
     with deterministic():
         out.index_add_(0, seg_id, vals)
     return out
+
+
+def _segment_max(vals: torch.Tensor, seg_id: torch.Tensor, n: int
+                 ) -> torch.Tensor:
+    """Segment max (``jax.ops.segment_max``) over the segments ``seg_id``
+    names; the others hold zeros, which no caller reads. Max is exact in
+    any order, so this is deterministic without a scoped setting."""
+    return vals.new_zeros((n,)).scatter_reduce_(0, seg_id, vals, "amax",
+                                                include_self=False)
 
 
 def _probe_slot_dyn(h0: torch.Tensor, r, capacity: int) -> torch.Tensor:
@@ -249,6 +259,8 @@ def _dedup_and_aggregate(key_hi, key_lo, updates, valid, mode_map):
         mode = mode_map[name]
         if mode == ADD:
             agg[name] = _segment_sum(upd_s[keyed], seg_id[keyed], B)[seg_id]
+        elif mode == MAX:
+            agg[name] = _segment_max(upd_s[keyed], seg_id[keyed], B)[seg_id]
         else:  # SET — the representative row is the last of its run.
             agg[name] = upd_s
     return s_hi, s_lo, agg, rep_mask
@@ -273,6 +285,8 @@ def _apply_lane_updates(lanes, agg, mode_map, ok, write_slot, rebase=None):
             lane[ws] = rebase[name][rows] + u
         elif mode == ADD:
             lane[ws] = lane[ws] + u
+        elif mode == MAX:
+            lane[ws] = torch.maximum(lane[ws], u)
         else:  # SET
             lane[ws] = u
     return lanes
@@ -286,7 +300,7 @@ def insert_accumulate(table: HashTable, key_hi, key_lo,
                       tick_lane: str = "last_tick", now=None) -> HashTable:
     """Batched insert-or-accumulate of (key -> lane updates), in place.
 
-    modes: tuple of (lane_name, ADD|SET). Under the lazy decay policy
+    modes: tuple of (lane_name, ADD|SET|MAX). Under the lazy decay policy
     (``decay_cfg`` + ``now``) the ``decay_lanes`` are rebased on write: the
     stored value is decayed from the slot's ``tick_lane`` to ``now`` before
     the update is added.
@@ -306,6 +320,59 @@ def insert_accumulate(table: HashTable, key_hi, key_lo,
                   if mode_map.get(name) == ADD}
     lanes = _apply_lane_updates(table.lanes, agg, mode_map, ok, write_slot,
                                 rebase=rebase)
+    return HashTable(key_hi_tab, key_lo_tab, lanes, table.n_dropped + dropped)
+
+
+def insert_accumulate_twopass(table: HashTable, key_hi, key_lo,
+                              updates: Dict[str, torch.Tensor], valid, *,
+                              modes: Tuple[Tuple[str, str], ...],
+                              probe_rounds: int = 16) -> HashTable:
+    """The pre-fusion probe core, in place: one find pass over every
+    probe round, then claim rounds that race over a ``[C]`` array, where
+    the highest batch row wins each empty slot it contends for. It shares
+    :func:`insert_accumulate`'s prologue and epilogue, so the two differ
+    only in probe strategy: the same key-to-value map wherever nothing is
+    dropped, though not always the same slots. Kept as the baseline of
+    the fused insert; the engine does not use it.
+    """
+    C = table.capacity
+    mode_map = dict(modes)
+    s_hi, s_lo, agg, alive = _dedup_and_aggregate(
+        key_hi, key_lo, updates, valid, mode_map)
+    B = s_hi.shape[0]
+    h0 = probe_hash(s_hi, s_lo)
+    key_hi_tab, key_lo_tab = table.key_hi, table.key_lo
+    found = torch.full((B,), -1, dtype=torch.int64, device=s_hi.device)
+    for r in range(probe_rounds):
+        pending = alive & (found < 0)
+        if not bool(pending.any()):
+            break
+        slot = _probe_slot_dyn(h0, r, C)
+        hit = pending & (key_hi_tab[slot] == s_hi) & (key_lo_tab[slot] == s_lo)
+        found = torch.where(hit, slot, found)
+
+    placed = found >= 0
+    write_slot = found
+    idx = torch.arange(B, device=s_hi.device)
+    claim = torch.full((C,), -1, dtype=torch.int64, device=s_hi.device)
+    for r in range(probe_rounds):
+        want = alive & ~placed
+        if not bool(want.any()):
+            break
+        slot = _probe_slot_dyn(h0, r, C)
+        contend = want & (key_hi_tab[slot] == 0) & (key_lo_tab[slot] == 0)
+        claim.scatter_reduce_(0, slot, torch.where(contend, idx, -1), "amax")
+        won = contend & (claim[slot] == idx)
+        claim[slot] = -1                    # ready for the next round
+        ws = slot[won]
+        key_hi_tab[ws] = s_hi[won]
+        key_lo_tab[ws] = s_lo[won]
+        write_slot = torch.where(won, slot, write_slot)
+        placed = placed | won
+
+    dropped = (alive & ~placed).sum(dtype=torch.int32)
+    lanes = _apply_lane_updates(table.lanes, agg, mode_map, placed & alive,
+                                write_slot)
     return HashTable(key_hi_tab, key_lo_tab, lanes, table.n_dropped + dropped)
 
 

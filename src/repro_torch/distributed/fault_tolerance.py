@@ -448,6 +448,14 @@ class CheckpointManager:
                                   "chain_len": len(chain)})
         return arrays, top_man, top_step
 
+    def restore_host(self, step: Optional[int] = None
+                     ) -> Dict[str, np.ndarray]:
+        """The composed ``leaf_{i}`` arrays of ``step`` (default: the
+        newest), on the host, with the chain walk's fallback of
+        :meth:`load_arrays`; no template and no device copy."""
+        arrays, _, _ = self.load_arrays(step)
+        return arrays
+
     def restore(self, template: Leaves, step: Optional[int] = None
                 ) -> Tuple[Leaves, int]:
         """Restore into the dtype and device of each leaf of ``template``

@@ -24,6 +24,7 @@ Kernel sites::
     call site                                  wrapper                  kernel (csrc/)
     ------------------------------------------ ------------------------ ----------------
     core/decay.sweep_decay_prune               ops.decay_prune_table    decay_prune.cu
+    (no engine caller)                         decay_prune.decay_prune  decay_prune.cu
     core/ranking._score_and_gate               ops.score_gate           score_gate.cu
     core/ranking.ranking_cycle (selection)     ops.bucket_topk          bucket_topk.cu
     core/stores.region_insert_accumulate,      ops.chain_find           chain_find.cu
@@ -32,7 +33,9 @@ Kernel sites::
     core/ranking.ranking_cycle_region (merge)  ops.bucket_topk          bucket_topk.cu
     core/spelling.spelling_cycle               ops.edit_distance        edit_distance.cu
     models/layers.attention (cache-free)       ops.flash_attention      flash_attention.cu
-    (no engine caller)                         assoc_score.assoc_score  assoc_score.cu
+    (no engine caller)                         ops.assoc_score          assoc_score.cu
+    (no engine caller)                         region_probe.            chain_find.cu
+                                                 chain_find_depth
 
 The hash layout's path runs ``decay_prune_multi``, ``score_gate`` and
 ``bucket_topk``; the region layout's runs ``decay_prune_multi`` (the
@@ -46,7 +49,12 @@ layer under remat ``"full"`` (the recomputed forward); its backward is the
 plain twin under autograd, as JAX's ``custom_vjp`` backward is its jnp
 oracle. The recsys and GNN serving and training paths launch none: no
 Pallas kernel lies on them in JAX either (``jnp.take``, einsums, segment
-ops and ``lax.top_k``).
+ops and ``lax.top_k``). A job of the §3 batch baseline
+(``data/batch_pipeline.py``) is a fresh hash engine with decay off that
+re-ingests its window and ranks once: ``score_gate`` and ``bucket_topk``.
+The single-lane entries ``decay_prune.decay_prune`` and
+``region_probe.chain_find_depth`` launch ``decay_prune_multi``'s and
+``chain_find``'s kernels and count under those names.
 """
 from __future__ import annotations
 
@@ -58,8 +66,8 @@ KERNELS = ("decay_prune_multi", "score_gate", "bucket_topk", "chain_find",
            "region_rank", "assoc_score", "edit_distance", "flash_attention")
 
 # The kernels each cooc layout's main path, the spelling job, the dense
-# and MoE LMs' scoring forwards, the recsys and GNN serving paths and an
-# LM's train step launch.
+# and MoE LMs' scoring forwards, the recsys and GNN serving paths, an
+# LM's train step and a batch-baseline job launch.
 PATH_KERNELS = {
     "hash": ("decay_prune_multi", "score_gate", "bucket_topk"),
     "region": ("decay_prune_multi", "chain_find", "region_rank",
@@ -70,6 +78,7 @@ PATH_KERNELS = {
     "recsys": (),
     "gnn": (),
     "train": ("flash_attention",),
+    "batch": ("score_gate", "bucket_topk"),
 }
 
 # Launch counts per kernel: incremented only where a wrapper launches its

@@ -3,7 +3,8 @@
 Port of the JAX package's ``kernels/decay_prune.py``. On CUDA tensors
 :func:`decay_prune_multi` launches ``csrc/decay_prune.cu`` (one read and
 one write of every lane); on CPU tensors it runs the plain version
-``ref.decay_prune_multi_ref``. The CUDA kernel takes any capacity.
+``ref.decay_prune_multi_ref``. :func:`decay_prune` is its single-lane
+form. The CUDA kernel takes any capacity.
 """
 from __future__ import annotations
 
@@ -76,6 +77,21 @@ def decay_prune_multi(key_hi: torch.Tensor, key_lo: torch.Tensor,
     keep = (out_hi != 0) | (out_lo != 0)
     return (out_hi, out_lo, (w_out,), a_out, keep.sum(dtype=torch.int32),
             w_out.sum())
+
+
+def decay_prune(key_hi: torch.Tensor, key_lo: torch.Tensor,
+                weight: torch.Tensor, decay_factor, threshold: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
+    """Single-lane sweep over (key_hi, key_lo, weight): the same kernel
+    with no aux lanes. Returns (key_hi', key_lo', weight', live_count
+    i32[], total_weight f32[]). A caller clears a store's other lanes by
+    the returned keys (a pruned slot has key (0, 0)), or sweeps them in
+    the one pass with :func:`decay_prune_multi`.
+    """
+    kh, kl, (w,), _, live, tot = decay_prune_multi(
+        key_hi, key_lo, (weight,), (), decay_factor, threshold)
+    return kh, kl, w, live, tot
 
 
 def launch(key_hi, key_lo, w, aux_lanes, out_hi, out_lo, w_out, a_out,

@@ -10,6 +10,7 @@ from typing import Tuple
 
 import torch
 
+from . import assoc_score as _as
 from . import decay_prune as _dp
 from . import edit_distance as _ed
 from . import flash_attention as _fa
@@ -35,6 +36,14 @@ def decay_prune_table(table, dticks, *, cfg, weight_lanes: Tuple[str, ...]):
     lanes = dict(zip(weight_lanes, w_out))
     lanes.update(zip(aux, a_out))
     return table._replace(key_hi=kh, key_lo=kl, lanes=lanes), live, tot
+
+
+def assoc_score(w_ab, c_ab, w_a, w_b, c_a, c_b, total_w, total_c, *,
+                coefs: Tuple[float, float, float, float]):
+    """Fused association scoring over full store lanes (no gates, no
+    decay)."""
+    return _as.assoc_score(w_ab, c_ab, w_a, w_b, c_a, c_b, total_w, total_c,
+                           coefs=tuple(float(c) for c in coefs))
 
 
 def _pre_decay(w_ab, decay_cfg, last_tick, now):

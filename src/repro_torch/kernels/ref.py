@@ -34,6 +34,22 @@ def decay_prune_multi_ref(key_hi, key_lo, weight_lanes: Sequence[torch.Tensor],
             w_out, a_out, keep.sum(dtype=torch.int32), w_out[0].sum())
 
 
+def assoc_score_ref(w_ab, c_ab, w_a, w_b, c_a, c_b, total_w, total_c,
+                    coefs: Tuple[float, float, float, float]):
+    """Combined association score per slot, no gates and no decay: the
+    four lanes of ``assoc_score.assoc_lanes`` in the paper's combination."""
+    return score_body(w_ab, c_ab, w_a, w_b, c_a, c_b, total_w, total_c, coefs)
+
+
+def decay_prune_ref(key_hi, key_lo, weight, decay_factor, threshold):
+    """Single-lane decay and prune. Returns (key_hi', key_lo', weight',
+    keep_mask, live_count, total_w); a kept slot is exactly one whose key
+    survives."""
+    kh, kl, (w,), _, live, tot = decay_prune_multi_ref(
+        key_hi, key_lo, (weight,), (), decay_factor, threshold)
+    return kh, kl, w, (kh != 0) | (kl != 0), live, tot
+
+
 def score_gate_ref(w_ab, c_ab, w_a, w_b, c_a, c_b, ok, total_w, total_c,
                    coefs: Tuple[float, float, float, float],
                    min_pair_weight: float, min_src_weight: float,

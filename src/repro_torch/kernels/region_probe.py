@@ -1,7 +1,8 @@
 """Region-layout chain find: match each pair's dst key along its chain.
 
 Port of the JAX package's ``kernels/region_probe.py`` (``chain_find_depth``
-and the ``chain_find`` loop over it). On CUDA tensors :func:`chain_find`
+and the ``chain_find`` loop over it; here :func:`chain_find_depth` is
+:func:`chain_find` on a one-column chain). On CUDA tensors :func:`chain_find`
 launches ``csrc/chain_find.cu`` once for the whole chain (a warp owns up
 to 32 batch rows, :func:`rows_per_warp`, and walks their active ones), on
 one of two routes
@@ -132,6 +133,26 @@ def chain_find(key_hi_r: torch.Tensor, key_lo_r: torch.Tensor,
     out = torch.empty((B,), dtype=torch.int32, device=regs.device)
     launch_chain_find(key_hi_r, key_lo_r, regs, dst_hi, dst_lo, active, out)
     return out
+
+
+def chain_find_depth(key_hi_r: torch.Tensor, key_lo_r: torch.Tensor,
+                     region_ids: torch.Tensor, dst_hi: torch.Tensor,
+                     dst_lo: torch.Tensor) -> torch.Tensor:
+    """Match each row's dst key against one region row: the in-region
+    position of its first match, or ``W`` where the key is absent there.
+
+    ``region_ids`` i32[B] picks each row's region and must hold valid
+    region ids. This is :func:`chain_find` on a one-column chain with
+    every row active (on CUDA the same ``chain_find.cu`` launch), the
+    found slot taken back to its position in the region. Returns i32[B].
+    """
+    W = key_hi_r.shape[1]
+    regs = region_ids.to(torch.int32).reshape(-1, 1).contiguous()
+    active = torch.ones((regs.shape[0],), dtype=torch.bool,
+                        device=regs.device)
+    found = chain_find(key_hi_r, key_lo_r, regs, dst_hi, dst_lo, active)
+    return torch.where(found >= 0, found - regs[:, 0] * W,
+                       torch.full_like(found, W))
 
 
 def launch_chain_find(key_hi_r, key_lo_r, regs, dst_hi, dst_lo, active,

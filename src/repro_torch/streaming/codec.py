@@ -212,3 +212,18 @@ def decode_payload(blob: bytes, times: Optional[Dict[str, float]] = None
     return payload, {"codec": header.get("codec", ZLIB),
                      "raw_nbytes": header.get("raw_nbytes"),
                      "nbytes": len(blob)}
+
+
+def lane_compression_report(payload: Dict[str, np.ndarray],
+                            codec: str = DEFAULT_CODEC,
+                            fp_lanes: Iterable[str] = FP_LANES
+                            ) -> Dict[str, Dict[str, float]]:
+    """Per-lane raw and encoded byte counts: each lane encoded alone under
+    ``codec``, so a reader sees which lane the transform pays for."""
+    out: Dict[str, Dict[str, float]] = {}
+    for k, a in payload.items():
+        blob, _ = encode_payload({k: a}, codec=codec, fp_lanes=fp_lanes)
+        raw = int(np.asarray(a).nbytes)
+        out[k] = {"raw_bytes": raw, "encoded_bytes": len(blob),
+                  "ratio": (raw / len(blob)) if len(blob) else 0.0}
+    return out

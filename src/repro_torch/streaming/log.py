@@ -606,6 +606,13 @@ class FirehoseLogReader:
         """Newest advertised compaction base tick (replay floor), or None."""
         return newest_base_tick(self.bases)
 
+    def newest_base(self, max_tick: Optional[int] = None) -> Optional[Dict]:
+        """The newest base entry whose tick is at most ``max_tick`` (None:
+        any), the cheapest replay start for a target at that tick."""
+        cands = [b for b in self.bases
+                 if max_tick is None or int(b["tick"]) <= int(max_tick)]
+        return max(cands, key=lambda b: int(b["tick"])) if cands else None
+
     # -- reads --
     def _load_segment(self, seg: Segment) -> LogChunk:
         blob = self._read_bytes_retry(os.path.join(self.dir, seg.file))

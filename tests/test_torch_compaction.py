@@ -198,6 +198,41 @@ def test_port_base_restores_into_jax(jax_and_port_bases):
     _bits_equal(j.state_arrays(), _arrays(state, tcfg))
 
 
+MAX_TICKS = [None, -1, 0, 5, 6, 7, 8, 9, 10, 11, 50]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_newest_base_matches_jax(jax_and_port_bases, writer):
+    """``FirehoseLogReader.newest_base`` on a log either compactor folded,
+    read by both packages' readers."""
+    from repro.streaming import FirehoseLogReader as JLogReader
+    root = jax_and_port_bases[0]
+    t, j = FirehoseLogReader(str(root / writer)), JLogReader(str(root / writer))
+    assert t.bases and t.bases == j.bases
+    for mt in MAX_TICKS:
+        assert t.newest_base(mt) == j.newest_base(mt), mt
+    assert t.newest_base()["tick"] == t.floor_tick() == 9
+
+
+def test_newest_base_over_several_bases_matches_jax(tmp_path):
+    """Three bases kept: each ``max_tick`` picks the newest base at or
+    below it, as JAX's reader does on the same directory."""
+    from repro.streaming import FirehoseLogReader as JLogReader
+    cfg = _cfg("sweep", rank_every=0)
+    logd = _write_log(tmp_path, _batches(13))
+    comp = _compactor(logd, {"rt": cfg}, keep_bases=3)
+    for upto in (3, 6, 9):
+        comp.compact(upto_tick=upto)
+    t, j = FirehoseLogReader(logd), JLogReader(logd)
+    assert [int(b["tick"]) for b in t.bases] == [3, 6, 9]
+    picked = []
+    for mt in MAX_TICKS + [2, 3, 4]:
+        got = t.newest_base(mt)
+        assert got == j.newest_base(mt), mt
+        picked.append(None if got is None else int(got["tick"]))
+    assert picked[:5] == [9, None, None, 3, 6]
+
+
 # ---------------------------------------------------------------------------
 # The fold is bit-exact at every boundary; disk stays bounded
 # ---------------------------------------------------------------------------

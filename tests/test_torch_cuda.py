@@ -1222,3 +1222,117 @@ def test_jax_gather_rules_and_topk_ties_on_card(cuda):
     assert top_k(x, 5)[1][0].tolist() == [5, 6, 1, 2, 4]
     for xs in (x, x.repeat(3, 40)):
         assert torch.equal(top_k(xs.to(cuda), 5)[1].cpu(), top_k(xs, 5)[1])
+
+
+@pytest.mark.parametrize("C", [1000, 1 << 16])
+def test_decay_prune_single_lane_cuda_matches_plain(cuda, C):
+    """The single-lane entry launches ``decay_prune.cu`` with no aux
+    lanes: keys, lane and live count bit for bit with the plain version;
+    the total is a plain sum on both sides, in a different order."""
+    from repro_torch.kernels.decay_prune import decay_prune
+    rng = np.random.default_rng(C + 1)
+    kh = rng.integers(0, 2**32, C, dtype=np.uint32)
+    kl = rng.integers(0, 2**32, C, dtype=np.uint32)
+    kh[rng.random(C) < 0.4] = 0
+    kl[kh == 0] = 0
+    w = (rng.random(C) * 3).astype(np.float32)
+    before = tk.LAUNCHES["decay_prune_multi"]
+    got = decay_prune(_t(kh, cuda), _t(kl, cuda), _t(w, cuda), 0.8, 0.3)
+    assert tk.LAUNCHES["decay_prune_multi"] == before + 1
+    exp = ref.decay_prune_ref(_t(kh, "cpu"), _t(kl, "cpu"), _t(w, "cpu"),
+                              torch.tensor(0.8), 0.3)
+    for g, e in zip(got[:3], exp[:3]):
+        assert torch.equal(g.cpu().view(torch.int32), e.view(torch.int32))
+    assert int(got[3]) == int(exp[4])
+    torch.testing.assert_close(got[4].cpu(), exp[5], rtol=1e-5, atol=0)
+
+
+def test_ops_assoc_score_cuda_matches_plain(cuda):
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(13)
+    C = (1 << 16) + 5
+    mk = lambda s: (rng.random(C) * s).astype(np.float32)
+    w_ab, c_ab = mk(5), np.floor(mk(20))
+    c_a = np.maximum(c_ab, np.floor(mk(100)))
+    c_b = np.maximum(c_ab, np.floor(mk(100)))
+    lanes = [_t(x, cuda) for x in (w_ab, c_ab, mk(50), mk(50), c_a, c_b)]
+    before = tk.LAUNCHES["assoc_score"]
+    got = ops.assoc_score(*lanes, 1e4, 2e4, coefs=COEFS)
+    assert tk.LAUNCHES["assoc_score"] == before + 1
+    sc = [torch.tensor(x, dtype=torch.float32, device=cuda)
+          for x in (1e4, 2e4)]
+    exp = ref.assoc_score_ref(*lanes, *sc, COEFS)
+    assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+
+
+@pytest.mark.parametrize("W", [16, 100, 128])
+def test_chain_find_depth_cuda_matches_plain(cuda, W):
+    from repro_torch.kernels.region_probe import chain_find_depth
+    rng = np.random.default_rng(W)
+    R, B = 512, 5000
+    kh = rng.integers(0, 2**32, (R, W), dtype=np.uint32)
+    kl = rng.integers(0, 2**32, (R, W), dtype=np.uint32)
+    kh[rng.random((R, W)) < 0.3] = 0
+    kl[kh == 0] = 0
+    kh[:, -1], kl[:, -1] = kh[:, 0], kl[:, 0]    # a key twice in a region
+    reg = rng.integers(0, R, B).astype(np.int32)
+    c0 = rng.integers(0, W, B)
+    dh, dl = kh[reg, c0], kl[reg, c0]
+    dh[rng.random(B) < 0.3] ^= np.uint32(0xBEEF)
+    args = (kh, kl, reg, dh, dl)
+    before = tk.LAUNCHES["chain_find"]
+    got = chain_find_depth(*[_t(x, cuda) for x in args])
+    assert tk.LAUNCHES["chain_find"] == before + 1
+    exp = chain_find_depth(*[_t(x, "cpu") for x in args])
+    assert torch.equal(got.cpu(), exp)
+    assert bool((exp == W).any()) and bool((exp < W).any())
+
+
+def test_insert_accumulate_twopass_on_card_matches_cpu(cuda):
+    """The two-pass insert on the card against the CPU, slot for slot,
+    over a near-full table that drops; and against the fused insert as a
+    key-to-value map where nothing drops."""
+    from repro_torch.core import stores as ts
+    from repro_torch.core.hashing import from_np_u32
+    modes = (("weight", "add"), ("count", "add"), ("peak", "max"),
+             ("last_tick", "set"))
+    lanes = {"weight": torch.float32, "count": torch.float32,
+             "peak": torch.float32, "last_tick": torch.int32}
+    rng = np.random.default_rng(21)
+    for cap, n_keys in ((1 << 8, 400), (1 << 14, 3000)):
+        tabs = {d: ts.make_table(cap, lanes, device=d) for d in (cuda, "cpu")}
+        fused = ts.make_table(cap, lanes, device=cuda)
+        for tick in range(3):
+            keys = rng.integers(1, n_keys, 4096).astype(np.uint64) \
+                * np.uint64(0x9E3779B97F4A7C15) | np.uint64(1)
+            hi = (keys >> np.uint64(32)).astype(np.uint32)
+            lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            upd = {"weight": rng.random(4096).astype(np.float32),
+                   "count": np.ones(4096, np.float32),
+                   "peak": rng.standard_normal(4096).astype(np.float32),
+                   "last_tick": np.full(4096, tick, np.int32)}
+            valid = rng.random(4096) < 0.9
+            for d in tabs:
+                args = (from_np_u32(hi, d), from_np_u32(lo, d),
+                        {k: torch.tensor(v, device=d) for k, v in upd.items()},
+                        torch.tensor(valid, device=d))
+                tabs[d] = ts.insert_accumulate_twopass(tabs[d], *args,
+                                                       modes=modes)
+                if d == cuda:
+                    fused = ts.insert_accumulate(fused, *args, modes=modes)
+        a, b = tabs[cuda], tabs["cpu"]
+        for x, y in zip((a.key_hi, a.key_lo, *a.lanes.values(), a.n_dropped),
+                        (b.key_hi, b.key_lo, *b.lanes.values(), b.n_dropped)):
+            assert torch.equal(x.cpu().view(torch.int32), y.view(torch.int32))
+        if int(b.n_dropped) == 0:
+            assert int(fused.n_dropped) == 0
+            ea, ef = export_live(a), export_live(fused)
+            ka = join_fp(ea["key_hi"], ea["key_lo"])
+            kf = join_fp(ef["key_hi"], ef["key_lo"])
+            oa, of = np.argsort(ka), np.argsort(kf)
+            np.testing.assert_array_equal(ka[oa], kf[of])
+            for name in lanes:
+                np.testing.assert_allclose(ea[name][oa], ef[name][of],
+                                           rtol=1e-6)
+        else:
+            assert cap == 1 << 8

@@ -74,3 +74,14 @@ def test_stream_ticks_identical(events):
         (jev, jtw), (tev, ttw) = js.gen_tick(t), ts.gen_tick(t)
         for a, b in zip((*jev, *jtw), (*tev, *ttw)):
             np.testing.assert_array_equal(a, b)
+
+
+def test_combine_fp_bit_identical():
+    rng = np.random.default_rng(4)
+    vals = [0, 1, 2**63, 2**64 - 1, 0x9E3779B97F4A7C15] + [
+        int(x) for x in rng.integers(0, 2**63, 200, dtype=np.uint64)]
+    for a, b in zip(vals, vals[::-1] + vals[:7]):
+        assert th.combine_fp(a, b) == jh.combine_fp(a, b)
+        assert th.combine_fp(b, a) == jh.combine_fp(b, a)
+    assert th.combine_fp(0x9E3779B97F4A7C15, 0) == jh.combine_fp(
+        0x9E3779B97F4A7C15, 0)

@@ -180,6 +180,12 @@ def _model_from_jax(**kw):
     return model_from_jax(tree, cfg, **kw).cin[0]
 
 
+def _batch_pipeline(**kw):
+    from repro_torch.data.batch_pipeline import (BatchPipeline,
+                                                 HadoopLatencyModel)
+    return BatchPipeline(_cfg(), HadoopLatencyModel(), 30.0, **kw)
+
+
 @pytest.mark.parametrize("make", [_init_state, _make_cooc_store, _make_table,
                                   _make_session_table,
                                   _make_region_cooc_store,
@@ -188,7 +194,8 @@ def _model_from_jax(**kw):
                                   _params_from_jax, _init_moe_lm, _init_moe,
                                   _moe_from_jax, _make_moe_inputs,
                                   _init_recsys, _init_gat,
-                                  _make_recsys_inputs, _model_from_jax],
+                                  _make_recsys_inputs, _model_from_jax,
+                                  _batch_pipeline],
                          ids=lambda f: f.__name__.lstrip("_"))
 def test_state_constructors_default_to_cuda_and_refuse_without_it(
         monkeypatch, make):
@@ -440,3 +447,124 @@ def test_training_entry_points_default_to_cuda_and_refuse_without_it(
     with pytest.raises(RuntimeError, match="CUDA"):
         entry(tmp_path / "cuda")
     assert entry(tmp_path / "cpu", device="cpu").type == "cpu"
+
+
+# Every public name of the JAX package that the port leaves out, with why:
+# "by design: ..." or the ROADMAP Queue 1 item that ports it. A file's key
+# stands for every name in it, a class's for its methods. An entry the port
+# defines must be a stub that raises NotImplementedError naming its item.
+LEFT_OUT = {
+    "core/engine.py:EngineConfig.kernel_on":
+        "by design: on CUDA the kernel is the only path",
+    "core/ranking.py:RankConfig.kernel_on":
+        "by design: on CUDA the kernel is the only path",
+    "core/engine.py:ingest_queries_stack":
+        "by design: the port's engine holds no plan (Queue 3, 'What the "
+        "plan means in the port')",
+    "launch/autotune.py:tune_engine_config":
+        "by design: the port's engine holds no plan",
+    "launch/autotune.py:BLOCK_ROWS_CANDIDATES":
+        "by design: the port's engine holds no plan",
+    "launch/autotune.py:INGEST_FUSE_CANDIDATES":
+        "by design: the port's engine holds no plan",
+    "kernels/__init__.py:resolve_interpret":
+        "by design: Pallas interpret mode",
+    "kernels/__init__.py:kernels_native": "by design: Pallas interpret mode",
+    "kernels/__init__.py:KERNEL_NATIVE_BACKENDS":
+        "by design: Pallas interpret mode",
+    **{f"kernels/decay_prune.py:{n}": "by design: a Pallas tile constant"
+       for n in ("LANE", "SUBLANE", "ROWS_PER_BLOCK", "TILE")},
+    "kernels/edit_distance.py:PAIR_BLOCK": "by design: a Pallas tile constant",
+    "kernels/flash_attention.py:MIN_LANE": "by design: a Pallas tile constant",
+    "kernels/flash_attention.py:NEG_INF": "by design: a Pallas tile constant",
+    **{f"models/recsys.py:{c}.jdtype": "by design: a JAX dtype property"
+       for c in ("BSTConfig", "XDeepFMConfig", "Bert4RecConfig",
+                 "TwoTowerConfig")},
+    "models/gnn.py:GATConfig.jdtype": "by design: a JAX dtype property",
+    "models/transformer.py:LMConfig.jdtype": "by design: a JAX dtype property",
+    **{f"models/{m}.py:Params": "by design: a JAX pytree alias"
+       for m in ("gnn", "layers", "moe")},
+    "models/layers.py:init_attention":
+        "by design: the port builds nn.Modules",
+    "models/layers.py:init_swiglu": "by design: the port builds nn.Modules",
+    "distributed/sharding.py": "14.4b",
+    "distributed/elastic.py:validate_divisibility": "14.4b",
+    "distributed/elastic.py:reshard_for_mesh": "14.4b",
+    "training/grad_compression.py:compressed_psum": "14.4b",
+    "launch/mesh.py:make_production_mesh": "14.6",
+    "launch/mesh.py:ICI_BW_PER_LINK": "14.6",
+    "launch/dryrun.py": "14.7",
+    **{f"launch/roofline.py:{n}": "14.7"
+       for n in ("Roofline", "analyze", "collective_bytes", "shape_bytes",
+                 "fusion_aware_bytes")},
+}
+ITEMS = {"14.4b", "14.6", "14.7"}
+
+
+def _public_names(path: Path):
+    """{name: node} of a module's public top-level functions, classes,
+    constants, and the public methods of its public classes."""
+    out = {}
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out[node.name] = node
+            if isinstance(node, ast.ClassDef):
+                for m in node.body:
+                    if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                        out[f"{node.name}.{m.name}"] = m
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    out[t.id] = node
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out[node.target.id] = node
+    return {n: v for n, v in out.items()
+            if not any(p.startswith("_") for p in n.split("."))}
+
+
+def _raises_not_implemented(node) -> bool:
+    return any(isinstance(n, ast.Raise) and "NotImplementedError"
+               in ast.unparse(n.exc) for n in ast.walk(node))
+
+
+def test_every_public_name_of_the_jax_package_is_ported_or_listed():
+    """Parsed, neither package imported: each public name of
+    ``src/repro/`` exists in ``src/repro_torch/`` or is in LEFT_OUT, and
+    LEFT_OUT holds no name the port has (bar a stub naming its item)."""
+    jax_root, port_root = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    missing, listed_present = [], []
+    for jpath in sorted(jax_root.rglob("*.py")):
+        rel = jpath.relative_to(jax_root).as_posix()
+        tpath = port_root / rel
+        if not tpath.exists():
+            if rel not in LEFT_OUT:
+                missing.append(rel)
+            continue
+        assert rel not in LEFT_OUT, f"{rel} is ported; take it out of LEFT_OUT"
+        ported = _public_names(tpath)
+        for name in _public_names(jpath):
+            key = f"{rel}:{name}"
+            owner = f"{rel}:{name.split('.')[0]}"
+            if key in LEFT_OUT or (owner in LEFT_OUT and owner != key):
+                if name in ported:
+                    listed_present.append((key, ported[name]))
+            elif name not in ported:
+                missing.append(key)
+    assert not missing, f"not ported and not in LEFT_OUT: {missing}"
+    for key, node in listed_present:
+        assert LEFT_OUT[key] in ITEMS and _raises_not_implemented(node) \
+            and LEFT_OUT[key] in ast.unparse(node), \
+            f"{key} is in the port; take it out of LEFT_OUT"
+
+
+@pytest.mark.parametrize("key", sorted(LEFT_OUT))
+def test_every_left_out_name_exists_in_jax_and_says_why(key):
+    rel, _, name = key.partition(":")
+    path = ROOT / "src" / "repro" / rel
+    assert path.exists(), key
+    if name:
+        assert name in _public_names(path), key
+    why = LEFT_OUT[key]
+    assert why in ITEMS or why.startswith("by design: "), key

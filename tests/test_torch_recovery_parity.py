@@ -9,6 +9,7 @@ port recovery replays a JAX-written log). Also ``ranking_cycle_lexsort``
 against the JAX one, the port's two ranking cycles against it, and
 ``repro_torch.breaking_news`` at a cut-down configuration.
 """
+import jax
 import numpy as np
 import pytest
 
@@ -39,6 +40,15 @@ CFG = dict(query_capacity=1 << 11, cooc_capacity=1 << 13,
 STREAM = dict(vocab_size=256, n_users=120, queries_per_tick=96,
               tweets_per_tick=8, tweet_words=3, tweet_grams=4)
 THRESH = DecayConfig().prune_threshold
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax_executables():
+    """XLA:CPU's compiled executables hold memory maps of the worker
+    process, which count against its map limit; the tier-1 run's
+    JAX-heavy workers come close to it, so this file releases its own."""
+    yield
+    jax.clear_caches()
 
 
 def _configs(layout="hash"):
@@ -83,6 +93,45 @@ def test_codec_blobs_cross_decode(name):
         out, info = dec.decode_payload(tblob)
         _bits_equal(out, payload)
         assert info["codec"] == name
+
+
+@pytest.mark.parametrize("name", ["raw", "zlib", "fpx-zlib"])
+def test_lane_compression_report_matches_jax(name):
+    payload = _payload(np.random.default_rng(4))
+    got = codec.lane_compression_report(payload, codec=name)
+    assert got == jcodec.lane_compression_report(payload, codec=name)
+    assert got.keys() == payload.keys()
+    assert got["ticks"]["raw_bytes"] == payload["ticks"].nbytes
+    for fp_lanes in ((), ("q_fp",)):
+        assert (codec.lane_compression_report(payload, name, fp_lanes)
+                == jcodec.lane_compression_report(payload, name, fp_lanes))
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_restore_host_reads_either_writers_chain(tmp_path, writer):
+    """``restore_host`` of every step of a full + delta chain, written by
+    the port or by JAX, equals JAX's ``restore_host`` array for array."""
+    jcfg, tcfg = _configs()
+    batches = _batches(8, seed=13)
+    if writer == "jax":
+        eng, ck = JEngine(jcfg), JCheckpointManager(
+            str(tmp_path), keep_n=0, full_interval=3)
+    else:
+        eng, ck = SearchAssistanceEngine(tcfg, device="cpu"), \
+            CheckpointManager(str(tmp_path), keep_n=0, full_interval=3)
+    for t in range(8):
+        eng.step(*batches[t])
+        if t % 2:
+            eng.save_snapshot(ck)
+    tck, jck = CheckpointManager(str(tmp_path)), JCheckpointManager(
+        str(tmp_path))
+    assert [tck.manifest(s)["kind"] for s in tck.steps()] == \
+        ["full", "delta", "delta", "full"]
+    for step in tck.steps() + [None]:
+        got, exp = tck.restore_host(step), jck.restore_host(step)
+        _bits_equal(got, exp)
+        assert all(isinstance(a, np.ndarray) for a in got.values())
+    _bits_equal(tck.restore_host(), eng.state_arrays())
 
 
 def test_diff_and_apply_rows_match_jax():

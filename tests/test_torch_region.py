@@ -47,6 +47,15 @@ Q_LANES_J = {"weight": jnp.float32, "count": jnp.float32,
 Q_LANES_T = {"weight": torch.float32, "count": torch.float32,
              "last_tick": torch.int32}
 MODES = (("weight", "add"), ("count", "add"), ("last_tick", "set"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax_executables():
+    """XLA:CPU's compiled executables hold memory maps of the worker
+    process, which count against its map limit; the tier-1 run's
+    JAX-heavy workers come close to it, so this file releases its own."""
+    yield
+    jax.clear_caches()
 COEFS = (1.0, 0.15, 0.02, 0.0)
 GATES = dict(min_pair_weight=0.25, min_src_weight=0.5, min_pair_count=1.0)
 
@@ -551,3 +560,36 @@ def test_region_width_default_and_override():
     eng = SearchAssistanceEngine(cfg, device="cpu")
     assert eng.state.cooc.width == 8
     assert eng.state.cooc.n_regions == (1 << 14) // 8
+
+
+def test_region_insert_max_lanes_match_jax():
+    """A MAX lane through the region store's insert: the segment max of a
+    pair's rows, then the max of that and the slot's value, as in JAX
+    (the shared prologue and epilogue of the hash insert)."""
+    rng = np.random.default_rng(31)
+    qcap, ccap = 1 << 9, 1 << 11
+    q, qf = _mk_qstore(rng, 80, qcap)
+    jrt = jstores.make_region_table(ccap, 8, qcap, 4,
+                                    {**Q_LANES_J, "peak": jnp.float32})
+    trt = tstores.make_region_table(ccap, 8, qcap, 4,
+                                    {**Q_LANES_T, "peak": torch.float32},
+                                    device="cpu")
+    modes = MODES + (("peak", "max"),)
+    for tick in range(3):
+        ah, al, bh, bl, pw, pc = _pair_events(rng, qf, 500)
+        peak = (rng.standard_normal(500) * 3).astype(np.float32)
+        n = ah.shape[0]
+        jrt = jstores.region_insert_accumulate(
+            jrt, q, *(jnp.asarray(x) for x in (ah, al, bh, bl)),
+            {"weight": jnp.asarray(pw), "count": jnp.asarray(pc),
+             "last_tick": jnp.full(n, tick, jnp.int32),
+             "peak": jnp.asarray(peak)},
+            jnp.ones(n, bool), modes=modes)
+        trt = tstores.region_insert_accumulate(
+            trt, _hash_to_torch(q), *(_t(x) for x in (ah, al, bh, bl)),
+            {"weight": _t(pw), "count": _t(pc),
+             "last_tick": torch.full((n,), tick, dtype=torch.int32),
+             "peak": _t(peak)},
+            torch.ones(n, dtype=torch.bool), modes=modes)
+        _assert_region_equal(jrt, trt)
+    assert (trt.lanes["peak"].numpy() > 0).any()
